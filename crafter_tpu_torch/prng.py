@@ -1,0 +1,102 @@
+"""Bit-exact threefry-2x32 in PyTorch for the draws the main path makes.
+
+The JAX package draws its worlds and episode keys through ``jax.random``
+with the default threefry2x32 implementation and
+``jax_threefry_partitionable=True`` (the default of the installed JAX).
+This module reproduces those bits, batched over a leading key axis and on
+whatever device the keys live on:
+
+* ``key(seed)``          -> words (0, seed)              (prng.threefry_seed)
+* ``fold_in(k, d)``      -> threefry(k, (0, d))           (prng.threefry_fold_in)
+* ``split(k, n)[i]``     -> threefry(k, (0, i))           (foldlike split)
+* ``random_bits(k, s)``  -> b0 ^ b1 of threefry(k, (0, i)) over flat index i
+* ``uniform`` / ``randint`` as ``jax.random`` builds them from those bits.
+
+A key is an int64 tensor ``(..., 2)`` holding the two uint32 words; int64
+keeps every intermediate exact without unsigned tensor support, and all
+arithmetic is masked back to 32 bits.
+"""
+
+from __future__ import annotations
+
+import torch
+
+MASK32 = 0xFFFFFFFF
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl(v, r):
+  return ((v << r) | (v >> (32 - r))) & MASK32
+
+
+def threefry2x32(k0, k1, x0, x1):
+  """The Threefry-2x32 block (20 rounds) on int64 words in [0, 2**32)."""
+  ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+  x0 = (x0 + ks[0]) & MASK32
+  x1 = (x1 + ks[1]) & MASK32
+  for i in range(5):
+    for r in _ROT[i % 2]:
+      x0 = (x0 + x1) & MASK32
+      x1 = _rotl(x1, r) ^ x0
+    x0 = (x0 + ks[(i + 1) % 3]) & MASK32
+    x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & MASK32
+  return x0, x1
+
+
+def key(seed: int, device='cuda') -> torch.Tensor:
+  """``jax.random.key(seed)`` for a non-negative 32-bit seed: (2,) words."""
+  return torch.tensor([0, int(seed) & MASK32], dtype=torch.int64,
+                      device=device)
+
+
+def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
+  """``jax.random.fold_in`` over a batch: keys (..., 2), data broadcastable
+  to ``keys.shape[:-1]`` (taken as uint32)."""
+  data = torch.as_tensor(data, device=keys.device).to(torch.int64) & MASK32
+  b0, b1 = threefry2x32(keys[..., 0], keys[..., 1],
+                        torch.zeros_like(data), data)
+  return torch.stack([b0, b1], -1)
+
+
+def split(keys: torch.Tensor, num: int) -> torch.Tensor:
+  """``jax.random.split(k, num)`` per key: (..., 2) -> (..., num, 2)."""
+  i = torch.arange(num, dtype=torch.int64, device=keys.device)
+  b0, b1 = threefry2x32(keys[..., None, 0], keys[..., None, 1],
+                        torch.zeros_like(i), i)
+  return torch.stack([b0, b1], -1)
+
+
+def random_bits(keys: torch.Tensor, shape) -> torch.Tensor:
+  """32 random bits per element, (..., *shape) int64, as
+  ``jax.random.bits(k, shape, uint32)``."""
+  size = 1
+  for s in shape:
+    size *= int(s)
+  i = torch.arange(size, dtype=torch.int64, device=keys.device)
+  b0, b1 = threefry2x32(keys[..., None, 0], keys[..., None, 1],
+                        torch.zeros_like(i), i)
+  return (b0 ^ b1).reshape(keys.shape[:-1] + tuple(shape))
+
+
+def uniform(keys: torch.Tensor, shape) -> torch.Tensor:
+  """``jax.random.uniform(k, shape)`` (float32 in [0, 1)) per key."""
+  # 23 random mantissa bits under the exponent of 1.0, minus 1.0
+  # (random.py:_uniform); the word stays below 2**31, so int32 holds it.
+  bits = (random_bits(keys, shape) >> 9) | 0x3F800000
+  return bits.to(torch.int32).view(torch.float32) - 1.0
+
+
+def randint(keys: torch.Tensor, minval: int, maxval: int) -> torch.Tensor:
+  """``jax.random.randint(k, (), minval, maxval)`` (int32) per key.
+
+  JAX splits the key in two, draws 32 bits from each and combines them
+  modulo the span with uint32 wrapping (random.py:_randint)."""
+  sub = split(keys, 2)
+  hi = random_bits(sub[..., 0, :], ())
+  lo = random_bits(sub[..., 1, :], ())
+  span = (maxval - minval) & MASK32
+  mult = (2 ** 16) % span
+  mult = ((mult * mult) & MASK32) % span
+  off = (((hi % span) * mult) & MASK32) + (lo % span)
+  off = (off & MASK32) % span
+  return (minval + off).to(torch.int32)

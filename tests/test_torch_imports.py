@@ -1,0 +1,60 @@
+"""The port stands alone: ``crafter_tpu_torch`` and ``chip_smoke.py`` import
+neither JAX (nor flax) nor the JAX package, checked both in a fresh
+interpreter (``sys.modules`` after importing every module) and by an AST
+scan of every import statement in their sources."""
+
+import ast
+import json
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / 'crafter_tpu_torch'
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'crafter_tpu')
+
+
+def _sources():
+  return sorted(PORT.rglob('*.py')) + [ROOT / 'chip_smoke.py']
+
+
+def _forbidden(module: str) -> bool:
+  top = module.split('.')[0]
+  return top in FORBIDDEN
+
+
+@pytest.mark.parametrize('path', _sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_forbidden_import_statements(path):
+  tree = ast.parse(path.read_text(), filename=str(path))
+  for node in ast.walk(tree):
+    if isinstance(node, ast.Import):
+      names = [a.name for a in node.names]
+    elif isinstance(node, ast.ImportFrom):
+      names = [node.module or ''] if node.level == 0 else []
+    else:
+      continue
+    bad = [n for n in names if _forbidden(n)]
+    assert not bad, f'{path.name}:{node.lineno} imports {bad}'
+
+
+def test_no_forbidden_modules_loaded():
+  modules = sorted(
+      'crafter_tpu_torch.' + str(p.relative_to(PORT).with_suffix(''))
+      .replace('/', '.').replace('.__init__', '')
+      for p in PORT.rglob('*.py'))
+  code = (
+      'import importlib, json, runpy, sys\n'
+      f'for m in {modules!r}:\n'
+      '  importlib.import_module(m.rstrip("."))\n'
+      f'runpy.run_path({str(ROOT / "chip_smoke.py")!r}, run_name="smoke")\n'
+      'print(json.dumps(sorted(sys.modules)))\n')
+  out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+  assert out.returncode == 0, out.stderr
+  loaded = json.loads(out.stdout.strip().splitlines()[-1])
+  bad = [m for m in loaded if _forbidden(m)]
+  assert not bad, bad
+  assert 'crafter_tpu_torch.step_cuda' in loaded
