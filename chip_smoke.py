@@ -37,7 +37,7 @@ MAIN_GROUPS = 20
 PROFILE_GROUPS = 3         # groups under torch.profiler for the breakdown
 TOP_OPS = 12
 NOISE_ATOL = 1e-6          # noise may differ from its twin by at most this
-# H100 SXM peaks (on-chip-measurement guide): memory rate, and the CUDA-core
+# H100 SXM peaks from NVIDIA's data sheet: memory rate, and the CUDA-core
 # float32 rate, which the bound also applies to integer operations (a lower
 # bound on their time: the int32 units are no faster).
 HBM_BYTES_PER_S = 3.35e12
