@@ -16,8 +16,11 @@ Run from the repository root on a machine with an NVIDIA H100:
    ``reset_batch = 320`` and actions from a CUDA generator; every env must
    have stepped the full count or reset, and each kernel's launch count
    must have risen during that run.  Prints env-steps/s (CUDA events).
-4. Runs the kernel path and the plain path on the card for 3 groups at 13
-   envs across episode ends and requires every leaf equal.
+   The same 320 worlds are made on the CPU too, and every leaf must equal
+   the card's.
+4. Runs the kernel path and the plain path on the card, and the CPU path,
+   for 3 groups at 13 envs across episode ends and requires every leaf
+   equal.
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line.  Any failed
@@ -42,12 +45,18 @@ NOISE_ATOL = 1e-6          # noise may differ from its twin by at most this
 # bound on their time: the int32 units are no faster).
 HBM_BYTES_PER_S = 3.35e12
 CORE_OPS_PER_S = 67e12
-# Operations a kernel does per element, counted from its source: a cell
-# and tick of csrc/group_tick.cu (passes 1-7; the one-thread player phase
-# is per env and negligible), a cell of csrc/balance.cu, a point of
-# csrc/noise2.cu (8 candidates of ~16 float and ~14 integer operations).
-OPS_GROUP_TICK_CELL = 380
-OPS_BALANCE_CELL = 20
+# Operations the work needs per element, counted from the kernels' source
+# where they do that work.  The group tick's mob phase is needed only for
+# the active entities (etype > player within the update distance): two
+# cell_bits hashes (~44), the move decision and target read (~60), the
+# claim word, its resolution at the target and the move (~50), shooting,
+# strikes and removals (~30); the kernel's own dense sweep over every cell
+# is not work the function needs.  The player phase costs ~300 a tick per
+# env.  The balance needs ~4 a cell to sort it into its chunk's counts;
+# the noise ~250 a point (8 candidates of ~16 float and ~14 integer ops).
+OPS_GROUP_TICK_ACTIVE = 180
+OPS_GROUP_TICK_PLAYER = 300
+OPS_BALANCE_CELL = 4
 OPS_NOISE_POINT = 250
 
 
@@ -105,6 +114,13 @@ def main():
     torch.cuda.synchronize()
     return out, start.elapsed_time(end) / reps
 
+  def to_device(obj, device):
+    if dataclasses.is_dataclass(obj):
+      return dataclasses.replace(obj, **{
+          f.name: to_device(getattr(obj, f.name), device)
+          for f in dataclasses.fields(obj)})
+    return obj.to(device)
+
   def max_err(a, b, what):
     """Max |a - b| over matching leaves; raises if shapes or dtypes differ."""
     la, lb = leaves(a), leaves(b)
@@ -143,9 +159,23 @@ def main():
             max_err(got[2], ref[2], 'group_tick occ'))
   if err != 0:
     fail('group_tick disagrees with step_group_plain')
+  # Active entities of this group, tick by tick: counted on the state that
+  # enters each tick (the player moves at most one cell before its mobs).
+  xy = torch.arange(c, device=dev)
+  cx, cy = xy // cfg.area[1], xy % cfg.area[1]
+  active, st = 0, env
+  for t in range(k):
+    pos = st.player.pos.long()
+    pdist = (pos[:, :1] - cx).abs() + (pos[:, 1:] - cy).abs()
+    active += int(((st.ent.etype > ct.rules.E_PLAYER)
+                   & (pdist < cfg.update_distance)).sum())
+    st = step_cuda.group_tick(st, acts[t:t + 1], cfg)[0]
+  print(f'group_tick: {active} active entity-ticks in the group, '
+        f'{active / (N_ENVS * c * k):.4%} of cell-ticks', flush=True)
   bytes_ = N_ENVS * c * (6 + 7) + 2 * N_ENVS * step_cuda.REC * 4 \
       + k * N_ENVS * (4 + 6)
-  ops = N_ENVS * c * k * OPS_GROUP_TICK_CELL
+  ops = active * OPS_GROUP_TICK_ACTIVE + N_ENVS * k * OPS_GROUP_TICK_PLAYER
+  del st
   rows.append(dict(
       name='group_tick', source='crafter_tpu_torch/csrc/group_tick.cu',
       replaces='crafter_tpu/step.py:1373', max_abs_err=err, ms=ms,
@@ -184,6 +214,14 @@ def main():
         f'{flips} materials flipped', flush=True)
   if err > NOISE_ATOL or flips != 0 or max_err(wk, wp, 'worldgen') != 0:
     fail('noise2 disagrees with noise2_fast')
+  # The same worlds made on the CPU, where the tests hold them against the
+  # reference: every leaf must be equal (the float32 math of the material
+  # cascade gives the same bits on both devices).
+  wc = worldgen.generate_world(keys.cpu(), cfg)
+  if max_err(wk, to_device(wc, dev), 'worldgen card vs CPU') != 0:
+    fail(f'{RESET_BATCH} worlds made on the card differ from the CPU\'s')
+  print(f'worldgen: {RESET_BATCH} worlds on the card == on the CPU',
+        flush=True)
   p = pts.shape[0]
   rows.append(dict(
       name='noise2', source='crafter_tpu_torch/csrc/noise2.cu',
@@ -262,18 +300,24 @@ def main():
       print(f'  {dev_us(e) / 1e3 / PROFILE_GROUPS:8.3f} ms/group '
             f'{e.count // PROFILE_GROUPS:5d}/group  {e.key[:70]}')
 
-  # 4. Kernel path == plain path on the card, across episode ends.
+  # 4. Kernel path == plain path on the card == the CPU, across episode
+  # ends.
   small = dataclasses.replace(cfg, length=25)
   plain = dataclasses.replace(small, engine='plain', noise_mode='fast')
   va = ct.vec_reset(ct.home_keys(9, 13, dev), small)
   vb = ct.vec_reset(ct.home_keys(9, 13, dev), plain)
+  vc = ct.vec_reset(ct.home_keys(9, 13, 'cpu'), small)
   for g in range(3):
     a = draw(13)
     va, oa = ct.vec_step_group(va, a, small, 4)
     vb, ob = ct.vec_step_group(vb, a, plain, 4)
+    vc, oc = ct.vec_step_group(vc, a.cpu(), small, 4)
     if max_err(va, vb, f'small group {g}') or max_err(oa, ob, 'small outs'):
       fail(f'kernel path and plain path differ at 13 envs, group {g}')
-  print(f'13 envs x 3 groups: kernel path == plain path '
+    if (max_err(va, to_device(vc, dev), f'small group {g} vs CPU')
+        or max_err(oa, to_device(oc, dev), 'small outs vs CPU')):
+      fail(f'the card and the CPU differ at 13 envs, group {g}')
+  print(f'13 envs x 3 groups: kernel path == plain path == CPU '
         f'({int(va.episode.sum())} episodes begun, '
         f'{int(va.pending.sum())} pending)', flush=True)
 

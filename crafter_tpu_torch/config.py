@@ -4,12 +4,12 @@ Same fields and the same chunk-size check as the JAX package's
 ``EnvConfig``.  The two backend knobs keep their names; their values name
 this package's backends:
 
-* ``engine`` — the group tick and the group-end balance: ``'auto'`` (or
-  ``'cuda'``) calls the kernel wrappers of :mod:`crafter_tpu_torch.step_cuda`,
-  which launch the hand-written CUDA kernels for CUDA tensors and take the
-  plain PyTorch twin for CPU tensors; ``'plain'`` always runs the twin.
-* ``noise_mode`` — the worldgen noise: ``'auto'`` (or ``'cuda'``) calls the
-  noise kernel wrapper, ``'fast'`` always runs the plain ``noise2_fast``.
+* ``engine`` — the group tick and the group-end balance: ``'auto'`` calls
+  the kernel wrappers of :mod:`crafter_tpu_torch.step_cuda`, which launch
+  the hand-written CUDA kernels for CUDA tensors and take the plain
+  PyTorch twin for CPU tensors; ``'plain'`` always runs the twin.
+* ``noise_mode`` — the worldgen noise: ``'auto'`` calls the noise kernel
+  wrapper, ``'fast'`` always runs the plain ``noise2_fast``.
 """
 
 from __future__ import annotations
@@ -20,8 +20,8 @@ from typing import Tuple
 
 from . import rules
 
-ENGINES = ('auto', 'cuda', 'plain')
-NOISE_MODES = ('auto', 'cuda', 'fast')
+ENGINES = ('auto', 'plain')
+NOISE_MODES = ('auto', 'fast')
 
 
 @dataclasses.dataclass(frozen=True)

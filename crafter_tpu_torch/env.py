@@ -6,7 +6,7 @@ The port's counterpart of the state-only main path of ``crafter_tpu/env.py``
 ``vec_step_group``, ``_group_finish``, ``_reset_pass``).  For the same keys
 and actions it produces the JAX package's states leaf for leaf.
 
-``cfg.engine`` picks the group tick and balance backend ('auto' / 'cuda':
+``cfg.engine`` picks the group tick and balance backend ('auto':
 the CUDA kernels for CUDA tensors, 'plain': the PyTorch twins);
 ``cfg.noise_mode`` the worldgen noise backend likewise.
 """

@@ -4,11 +4,13 @@ The port's counterpart of ``crafter_tpu/worldgen.py:generate_world`` in its
 2-D noise modes: the same 13 noise channels, material cascade, mob seeding
 and ``chunk_touched``, from the same threefry draws, so every leaf equals
 the JAX package's world for the same key.  The noise runs through the CUDA
-kernel wrapper (``noise_mode`` 'auto' / 'cuda') or the plain twin ('fast').
+kernel wrapper (``noise_mode`` 'auto') or the plain twin ('fast').
 
 Float details that keep it bit-exact: divisions by constants are multiplies
 by float32 reciprocals and single-use products feeding a sum are fused
-(``ops/fma.py``), as XLA compiles the JAX function.
+(``ops/fma.py``), as XLA compiles the JAX function; the sigmoid is XLA's
+own (``ops/fma.py:sigmoid32``), so worlds are the same on the CPU and on
+the card.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from . import prng, rules
 from . import state as state_lib
 from .config import EnvConfig
 from .ops import noise, noise_cuda
-from .ops.fma import fma32
+from .ops.fma import fma32, sigmoid32
 
 # (x scale numerator, x divisor, y numerator, y divisor, z) per channel
 # (crafter_tpu/worldgen.py:44-58): point = (num_x * x / div_x, num_y * y /
@@ -102,8 +104,11 @@ def generate_world(keys: torch.Tensor, cfg: EnvConfig) -> state_lib.State:
   # --- material pass (worldgen.py:21-61) -------------------------------
   xs = torch.arange(w, device=dev)[:, None]
   ys = torch.arange(h, device=dev)[None, :]
-  dist = torch.sqrt(((xs - cx) ** 2 + (ys - cy) ** 2).to(torch.float32))
-  start = torch.sigmoid(fma32(2.0, n[:, 0], 4.0 - dist))
+  # float64 sqrt of an integer, rounded: the correctly rounded float32 on
+  # any device.
+  dist = torch.sqrt(((xs - cx) ** 2 + (ys - cy) ** 2).to(torch.float64)).to(
+      torch.float32)
+  start = sigmoid32(fma32(2.0, n[:, 0], 4.0 - dist))
   water = fma32(-2.0, start, water_n + 0.1)
   mountain = fma32(-0.3, water, mountain_n - 4.0 * start)
 

@@ -28,7 +28,7 @@ def dev():
 
 def _assert_equal(a, b):
   for (pa, x), (_, y) in zip(leaves(a), leaves(b)):
-    assert torch.equal(x, y), pa
+    assert torch.equal(x, y.to(x.device)), pa
 
 
 def test_kernels_match_plain_twins(dev):
@@ -57,11 +57,25 @@ def test_vec_step_group_kernel_path_equals_plain(dev):
   plain = dataclasses.replace(cfg, engine='plain', noise_mode='fast')
   va = ct.vec_reset(ct.home_keys(9, 13, dev), cfg)
   vb = ct.vec_reset(ct.home_keys(9, 13, dev), plain)
+  vc = ct.vec_reset(ct.home_keys(9, 13, 'cpu'), cfg)
   gen = torch.Generator(device=dev)
   gen.manual_seed(2)
   for _ in range(3):
     acts = torch.randint(0, 17, (10, 13), generator=gen, device=dev)
     va, oa = ct.vec_step_group(va, acts, cfg, 4)
     vb, ob = ct.vec_step_group(vb, acts, plain, 4)
+    vc, oc = ct.vec_step_group(vc, acts.cpu(), cfg, 4)
     _assert_equal(va, vb)
     _assert_equal(oa, ob)
+    _assert_equal(va, vc)
+    _assert_equal(oa, oc)
+
+
+def test_worldgen_on_card_equals_cpu(dev):
+  """The CPU worlds are held against the reference by the CPU tests; the
+  card's, made through the noise kernel and the card's float32 math, must
+  be the same in every leaf."""
+  cfg = ct.EnvConfig()
+  keys = ct.prng.fold_in(ct.home_keys(4, 320, dev), 1)
+  _assert_equal(worldgen.generate_world(keys, cfg),
+                worldgen.generate_world(keys.cpu(), cfg))

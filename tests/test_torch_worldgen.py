@@ -51,3 +51,27 @@ def test_generate_world_matches_jax(seed):
   # The worlds are not trivial: mobs and several materials appear.
   assert (ours['ent']['etype'] > 1).sum() > 0
   assert len(np.unique(ours['mat_map'])) >= 5
+
+
+def _float32_grid(lo, hi, stride):
+  """Every stride-th float32 in [lo, hi], in order."""
+  def ordered(f):
+    b = np.array(f, np.float32).view(np.int32).astype(np.int64)
+    return np.where(b < 0, -(b & 0x7FFFFFFF), b)
+  o = np.arange(ordered(lo), ordered(hi) + 1, stride, dtype=np.int64)
+  bits = np.where(o < 0, (-o) | np.int64(-2 ** 31), o)
+  return (bits & 0xFFFFFFFF).astype(np.uint32).view(np.float32)
+
+
+def test_sigmoid32_and_exp32_match_jax():
+  """The worldgen sigmoid, bitwise against jax.nn.sigmoid and jnp.exp on
+  2.2M float32 values spread over [-60, 60] and 0.5M more, denser, in
+  [-1/16, 1/16] around the start-area threshold.  Tolerance: none."""
+  from crafter_tpu_torch.ops.fma import exp32, sigmoid32
+  x = np.concatenate([_float32_grid(-60.0, 60.0, 997),
+                      _float32_grid(-0.0625, 0.0625, 4099)])
+  t = torch.from_numpy(x)
+  np.testing.assert_array_equal(sigmoid32(t).numpy(),
+                                np.asarray(jax.jit(jax.nn.sigmoid)(x)))
+  np.testing.assert_array_equal(exp32(t).numpy(),
+                                np.asarray(jax.jit(jnp.exp)(x)))
