@@ -6,21 +6,29 @@ Run from the repository root on a machine with an NVIDIA H100:
 
 1. Builds the CUDA kernels of ``crafter_tpu_torch/csrc`` (nvcc, sm_90a).
 2. Holds each kernel against its plain PyTorch twin on the card, on the
-   same inputs at main-path shapes: the group tick and the balance at 4096
-   envs (states reached by stepping fresh worlds), the noise on one reset
-   pass of 320 worlds.  Integer outputs and rewards must be bitwise equal;
-   noise must be bitwise equal or within NOISE_ATOL with no material of the
-   320 worlds flipped.
-3. Drives the main path: ``vec_reset_chunked`` of 4096 envs, then
-   MAIN_GROUPS groups of ``vec_step_group`` (K = 10 ticks) with
-   ``reset_batch = 320`` and actions from a CUDA generator; every env must
-   have stepped the full count or reset, and each kernel's launch count
-   must have risen during that run.  Prints env-steps/s (CUDA events).
-   The same 320 worlds are made on the CPU too, and every leaf must equal
-   the card's.
+   same inputs at main-path shapes: the group tick (without and with render
+   snapshots), the tick and the balance at 4096 envs (states reached by
+   stepping fresh worlds), the noise on one reset pass of 320 worlds, the
+   render kernel on 40960 frames (one pixel group's) in both output formats,
+   with a share of the frames at night, a share sleeping and some players at
+   the map's edge.  Integer outputs, rewards and frame bytes must be bitwise
+   equal; noise must be bitwise equal or within NOISE_ATOL with no material
+   of the 320 worlds flipped.
+3. Drives the three paths at 4096 envs, each with the launch counts set to
+   0 just before and read just after, and prints env-steps/s (CUDA events):
+   the state-only path (``vec_reset_chunked``, then groups of
+   ``vec_step_group``, K = 10 ticks, ``reset_batch = 320``) and the pixel
+   path (groups of ``vec_step_group_obs``, one frame per tick and env) in
+   two turns each, alternating, and the per-tick path (``VecEnv.reset`` and
+   ``step``).  Every env must have
+   stepped the full count or reset, every frame batch is read, and every
+   kernel of a path must have been launched on it.  The worlds of one reset
+   pass are made on the CPU too, and every leaf must equal the card's.
 4. Runs the kernel path and the plain path on the card, and the CPU path,
-   for 3 groups at 13 envs across episode ends and requires every leaf
-   equal.
+   at 13 envs across episode ends and requires every leaf and frame equal:
+   3 groups state-only, 3 groups of the pixel path, 30 ticks of ``VecEnv``
+   (card and CPU); and ``daylight`` on the card must equal the CPU's for
+   steps 0..10000.
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line.  Any failed
@@ -36,9 +44,12 @@ from pathlib import Path
 N_ENVS = 4096
 RESET_BATCH = 320          # min(N, 10 * max(32, N // 128)), bench.py:57-58
 WARM_GROUPS = 3            # groups stepped before the kernel checks
-MAIN_GROUPS = 20
+MAIN_GROUPS = 10           # timed groups of the state-only path, per turn
+PIXEL_GROUPS = 10          # timed groups of the pixel path, per turn
+TICKS = 20                 # timed VecEnv.step calls of the per-tick path
 PROFILE_GROUPS = 3         # groups under torch.profiler for the breakdown
-TOP_OPS = 12
+TWIN_CHUNK = 4096          # frames per call of the render kernel's twin
+TOP_OPS = 8
 NOISE_ATOL = 1e-6          # noise may differ from its twin by at most this
 # H100 SXM peaks from NVIDIA's data sheet: memory rate, and the CUDA-core
 # float32 rate, which the bound also applies to integer operations (a lower
@@ -46,18 +57,26 @@ NOISE_ATOL = 1e-6          # noise may differ from its twin by at most this
 HBM_BYTES_PER_S = 3.35e12
 CORE_OPS_PER_S = 67e12
 # Operations the work needs per element, counted from the kernels' source
-# where they do that work.  The group tick's mob phase is needed only for
-# the active entities (etype > player within the update distance): two
+# where they do that work.  The mob phase of a tick is needed only for the
+# active entities (etype > player within the update distance): two
 # cell_bits hashes (~44), the move decision and target read (~60), the
 # claim word, its resolution at the target and the move (~50), shooting,
 # strikes and removals (~30); the kernel's own dense sweep over every cell
 # is not work the function needs.  The player phase costs ~300 a tick per
 # env.  The balance needs ~4 a cell to sort it into its chunk's counts;
 # the noise ~250 a point (8 candidates of ~16 float and ~14 integer ops).
-OPS_GROUP_TICK_ACTIVE = 180
-OPS_GROUP_TICK_PLAYER = 300
+# Every rendered pixel needs its texel (~30: three indexed loads, the
+# three-channel blit, packing); a pixel of the lit view also the lighting
+# (~75: two lumas, desaturate, tint, daylight blend, sleep overlay, floors);
+# and of those the pixels of a night frame the keyed noise (~25: hash,
+# scale, mask, blend, floors).  By day the noise does not reach the frame.
+OPS_TICK_ACTIVE = 180
+OPS_TICK_PLAYER = 300
 OPS_BALANCE_CELL = 4
 OPS_NOISE_POINT = 250
+OPS_RENDER_TEXEL = 30
+OPS_RENDER_LIGHT = 75
+OPS_RENDER_NOISE = 25
 
 
 def fail(msg):
@@ -84,7 +103,8 @@ def main():
   import crafter_tpu_torch as ct
   from crafter_tpu_torch import _build, step as step_lib, step_cuda
   from crafter_tpu_torch import env as env_lib
-  from crafter_tpu_torch import worldgen
+  from crafter_tpu_torch import render as render_lib
+  from crafter_tpu_torch import render_cuda, worldgen
   from crafter_tpu_torch.ops import noise, noise_cuda
   from crafter_tpu_torch.state import leaves
 
@@ -114,18 +134,14 @@ def main():
     torch.cuda.synchronize()
     return out, start.elapsed_time(end) / reps
 
-  def to_device(obj, device):
-    if dataclasses.is_dataclass(obj):
-      return dataclasses.replace(obj, **{
-          f.name: to_device(getattr(obj, f.name), device)
-          for f in dataclasses.fields(obj)})
-    return obj.to(device)
-
   def max_err(a, b, what):
-    """Max |a - b| over matching leaves; raises if shapes or dtypes differ."""
-    la, lb = leaves(a), leaves(b)
+    """Max |a - b| over matching leaves (dataclasses, dicts or tensors);
+    raises if shapes or dtypes differ."""
+    as_leaves = lambda o: (sorted(o.items()) if isinstance(o, dict)
+                           else leaves(o))
     worst = 0.0
-    for (pa, x), (pb, y) in zip(la, lb):
+    for (pa, x), (pb, y) in zip(as_leaves(a), as_leaves(b)):
+      y = y.to(x.device)
       if pa != pb or x.shape != y.shape or x.dtype != y.dtype:
         fail(f'{what}: leaf {pa} {x.shape} {x.dtype} vs {pb} {y.shape} '
              f'{y.dtype}')
@@ -142,6 +158,7 @@ def main():
   gen.manual_seed(0)
   draw = lambda n: torch.randint(0, 17, (k, n), generator=gen, device=dev,
                                  dtype=torch.int32)
+  core = ct.CrafterEnv(cfg, dev)
 
   # 2. Each kernel against its plain twin at main-path shapes.
   vs = ct.vec_reset_chunked(ct.home_keys(1, N_ENVS, dev), cfg)
@@ -163,30 +180,78 @@ def main():
   # enters each tick (the player moves at most one cell before its mobs).
   xy = torch.arange(c, device=dev)
   cx, cy = xy // cfg.area[1], xy % cfg.area[1]
-  active, st = 0, env
-  for t in range(k):
+
+  def active_entities(st):
     pos = st.player.pos.long()
     pdist = (pos[:, :1] - cx).abs() + (pos[:, 1:] - cy).abs()
-    active += int(((st.ent.etype > ct.rules.E_PLAYER)
-                   & (pdist < cfg.update_distance)).sum())
+    return int(((st.ent.etype > ct.rules.E_PLAYER)
+                & (pdist < cfg.update_distance)).sum())
+
+  active, st = 0, env
+  for t in range(k):
+    active += active_entities(st)
     st = step_cuda.group_tick(st, acts[t:t + 1], cfg)[0]
   print(f'group_tick: {active} active entity-ticks in the group, '
         f'{active / (N_ENVS * c * k):.4%} of cell-ticks', flush=True)
-  bytes_ = N_ENVS * c * (6 + 7) + 2 * N_ENVS * step_cuda.REC * 4 \
+  group_bytes = N_ENVS * c * (6 + 7) + 2 * N_ENVS * step_cuda.REC * 4 \
       + k * N_ENVS * (4 + 6)
-  ops = active * OPS_GROUP_TICK_ACTIVE + N_ENVS * k * OPS_GROUP_TICK_PLAYER
+  group_ops = active * OPS_TICK_ACTIVE + N_ENVS * k * OPS_TICK_PLAYER
   del st
   rows.append(dict(
       name='group_tick', source='crafter_tpu_torch/csrc/group_tick.cu',
       replaces='crafter_tpu/step.py:1373', max_abs_err=err, ms=ms,
-      plain_ms=plain_ms, bytes=bytes_, ops=ops, library_ms=None))
+      plain_ms=plain_ms, bytes=group_bytes, ops=group_ops, library_ms=None))
+
+  # The same group with render snapshots.
+  got_s, ms = timed(lambda: step_cuda.group_tick(env, acts, cfg,
+                                                 snapshots=True), 5)
+  ref_s, plain_ms = timed(lambda: step_lib.step_group_plain(
+      env, acts, cfg, snapshots=True), 2)
+  cut = lambda sn: dataclasses.replace(sn, packed=sn.packed[:k - 1])
+  err = max(max_err(got_s[0], ref_s[0], 'group_tick_snaps state'),
+            max_err(got_s[1], ref_s[1], 'group_tick_snaps raw'),
+            max_err(got_s[2], ref_s[2], 'group_tick_snaps occ'),
+            max_err(cut(got_s[3]), cut(ref_s[3]), 'group_tick_snaps snaps'),
+            max_err(got_s[0], got[0], 'group_tick with vs without snaps'))
+  if err != 0:
+    fail('group_tick with snapshots disagrees with step_group_plain')
+  snap_bytes = (k - 1) * N_ENVS * (c + 4 * 4 + ct.rules.N_ITEMS * 4)
+  rows.append(dict(
+      name='group_tick_snaps', source='crafter_tpu_torch/csrc/group_tick.cu',
+      replaces='crafter_tpu/step.py:1373', max_abs_err=err, ms=ms,
+      plain_ms=plain_ms, bytes=group_bytes + snap_bytes, ops=group_ops,
+      library_ms=None, snapshots=True))
+  del got_s, ref_s
+
+  # One tick.
+  sp, sm, _ = step_lib.tick_seeds(env.key, env.step + 1)
+  tk, ms = timed(lambda: step_cuda.tick(env, acts[0], sp, sm, cfg), 5)
+  tref, plain_ms = timed(lambda: step_lib.tick_plain(env, acts[0], sp, sm,
+                                                     cfg), 2)
+  err = max_err(tk, tref, 'tick')
+  if err != 0:
+    fail('tick disagrees with tick_plain')
+  if torch.equal(tk.ent.etype, env.ent.etype):
+    fail('the tick moved no entity: the check has no teeth')
+  rows.append(dict(
+      name='tick', source='crafter_tpu_torch/csrc/group_tick.cu',
+      replaces='crafter_tpu/step.py:1235', max_abs_err=err, ms=ms,
+      plain_ms=plain_ms,
+      bytes=N_ENVS * c * (6 + 6) + 2 * N_ENVS * step_cuda.REC * 4
+      + 3 * N_ENVS * 4,
+      ops=active_entities(env) * OPS_TICK_ACTIVE + N_ENVS * OPS_TICK_PLAYER,
+      library_ms=None))
+  del tk, tref
 
   occ = got[2]
   s_bal = step_lib.tick_seeds(got[0].key, got[0].step)[2]
   bal, ms = timed(lambda: step_cuda.balance(got[0], s_bal, occ, cfg), 5)
   bref, plain_ms = timed(
       lambda: step_lib.balance_plain(got[0], s_bal, occ, cfg), 2)
-  err = max_err(bal, bref, 'balance')
+  err = max(max_err(bal, bref, 'balance'),
+            max_err(step_cuda.balance(got[0], s_bal, None, cfg),
+                    step_lib.balance_plain(got[0], s_bal, None, cfg),
+                    'balance without occupancy'))
   if err != 0:
     fail('balance disagrees with balance_plain')
   changed = int((bal.ent.etype != got[0].ent.etype).sum())
@@ -218,7 +283,7 @@ def main():
   # reference: every leaf must be equal (the float32 math of the material
   # cascade gives the same bits on both devices).
   wc = worldgen.generate_world(keys.cpu(), cfg)
-  if max_err(wk, to_device(wc, dev), 'worldgen card vs CPU') != 0:
+  if max_err(wk, wc, 'worldgen card vs CPU') != 0:
     fail(f'{RESET_BATCH} worlds made on the card differ from the CPU\'s')
   print(f'worldgen: {RESET_BATCH} worlds on the card == on the CPU',
         flush=True)
@@ -228,80 +293,268 @@ def main():
       replaces='crafter_tpu/ops/noise_pallas.py:99', max_abs_err=err, ms=ms,
       plain_ms=plain_ms, bytes=p * (8 + 4 + 4), ops=p * OPS_NOISE_POINT,
       library_ms=None))
-  del got, ref, bal, bref, nz, nref, wk, wp, pts, seeds, env, vs
+  del got, ref, bal, bref, nz, nref, wk, wp, wc, pts, seeds
+
+  # The render kernel on one pixel group's frames (K * N): the stepped
+  # worlds under players spread over the whole map (a share of them within
+  # the view's reach of an edge), steps over the whole day, one frame in
+  # five asleep, inventories of 0..12.
+  b = k * N_ENVS
+  rnd = lambda hi, shape: torch.randint(0, hi, shape, generator=gen,
+                                        device=dev, dtype=torch.int32)
+  atlas = core.atlas
+  packed = render_lib.pack_cells(env.mat_map, env.ent.etype, env.ent.aux,
+                                 env.ent.facing).repeat(k, 1)
+  ppos = rnd(cfg.area[0], (b, 2))
+  steps = torch.arange(b, device=dev, dtype=torch.int32) % cfg.day_length
+  sleeping = rnd(5, (b,)) == 0
+  win79 = render_lib.window_prep(packed, ppos, rnd(4, (b,)), sleeping,
+                                 rnd(13, (b, ct.rules.N_ITEMS)), cfg)
+  light = ct.daylight(steps, cfg.day_length)
+  seeds = render_lib.noise_seed(env.key.repeat(k, 1), steps)
+  n_night, n_sleep = int((light < 0.5).sum()), int(sleeping.sum())
+  n_edge = int((win79[:, :63] & 15 == render_lib.GRAY_ID).any(1).sum())
+  print(f'render_win79: {b} frames, {n_night} at night, {n_sleep} asleep, '
+        f'{n_edge} showing the map\'s edge', flush=True)
+  if not (n_night and n_sleep and n_edge):
+    fail('the render check needs night, sleeping and edge frames')
+  del packed
+  frames, ms = timed(lambda: render_cuda.render_win79(
+      win79, light, sleeping, seeds, atlas, cfg.size, 'frames'), 5)
+  lanes, packed_ms = timed(lambda: render_cuda.render_win79(
+      win79, light, sleeping, seeds, atlas, cfg.size, 'packed'), 5)
+  # The twin in chunks (its intermediates are (B, P) planes), timed alone.
+  bad_px = torch.zeros((), dtype=torch.int64, device=dev)
+  worst = torch.zeros((), dtype=torch.int16, device=dev)   # in colour levels
+  spans = []
+  for i in range(0, b, TWIN_CHUNK):
+    j = slice(i, i + TWIN_CHUNK)
+    spans.append([torch.cuda.Event(enable_timing=True) for _ in range(2)])
+    spans[-1][0].record()
+    want = render_lib.render_win79_plain(win79[j], light[j], sleeping[j],
+                                         seeds[j], atlas)
+    spans[-1][1].record()
+    image = render_lib.frame_image(want, cfg.size)
+    bad_px += (lanes[j] != want).sum() + (frames[j] != image).sum()
+    for got_px in (frames[j], render_lib.frame_image(lanes[j], cfg.size)):
+      worst = torch.maximum(worst, (got_px.to(torch.int16)
+                                    - image.to(torch.int16)).abs().max())
+  torch.cuda.synchronize()
+  plain_ms = sum(t0.elapsed_time(t1) for t0, t1 in spans)
+  err = float(worst)
+  print(f'render_win79: packed output {packed_ms:.3f} ms, frames output '
+        f'{ms:.3f} ms, {int(bad_px)} values differ from the twin, max '
+        f'|diff| {err}', flush=True)
+  if int(bad_px) != 0 or err != 0:
+    fail('render_win79 disagrees with render_win79_plain')
+  pix = atlas.src.shape[0]
+  lit_pix = int(atlas.view_mask.sum())
+  table_bytes = sum(t.numel() * t.element_size() for _, t in leaves(atlas))
+  rows.append(dict(
+      name='render_win79', source='crafter_tpu_torch/csrc/render.cu',
+      replaces='crafter_tpu/render.py:567', max_abs_err=err, ms=ms,
+      plain_ms=plain_ms,
+      bytes=b * (win79.shape[1] * 4 + 12) + table_bytes + b * pix * 3,
+      ops=b * (pix * OPS_RENDER_TEXEL + lit_pix * OPS_RENDER_LIGHT)
+      + n_night * lit_pix * OPS_RENDER_NOISE, library_ms=None))
+  del frames, lanes, win79, want, image, got_px, env, vs
   torch.cuda.empty_cache()
 
-  # 3. The main path, counted and timed.
-  wrappers = {'group_tick': step_cuda.group_tick,
-              'balance': step_cuda.balance, 'noise2': noise_cuda.noise2}
-  for fn in wrappers.values():
-    fn.launches = 0
+  # 3. The paths, counted and timed.
+  wrappers = {'group_tick': step_cuda.group_tick, 'tick': step_cuda.tick,
+              'balance': step_cuda.balance, 'noise2': noise_cuda.noise2,
+              'render_win79': render_cuda.render_win79}
+
+  def zero_counts():
+    for fn in wrappers.values():
+      fn.launches = 0
+
+  def read_counts(path, needed):
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    for name in needed:
+      if counts[name] == 0:
+        fail(f'kernel {name} was not launched on the {path} path')
+    return counts
+
+  def check_advanced(vs, vs0, ticks, path):
+    stepped = (vs.env.step - vs0.env.step) == ticks
+    reset = vs.episode > vs0.episode
+    bad = int((~(stepped | reset)).sum())
+    if bad:
+      fail(f'{path} path: {bad} envs neither stepped nor reset')
+
+  def profile(fn, reps, unit, path):
+    """Device busy share and top device operations over ``reps`` calls."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA]) as prof:
+      t0 = time.perf_counter()
+      for _ in range(reps):
+        fn()
+      torch.cuda.synchronize()
+      wall_ms = (time.perf_counter() - t0) * 1e3
+    # Device-side entries only (kernels, copies): the host operators that
+    # launched them report the same device time again.
+    dev_us = lambda e: getattr(e, 'self_device_time_total', 0)
+    events = sorted((e for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=dev_us, reverse=True)
+    busy_ms = sum(dev_us(e) for e in events) / 1e3
+    print(f'profile of {reps} {unit}s of the {path} path on {card}: wall '
+          f'{wall_ms / reps:.1f} ms/{unit}, device busy '
+          f'{busy_ms / reps:.1f} ms/{unit} '
+          f'({100 * busy_ms / wall_ms:.1f}%); top device time:', flush=True)
+    for e in events[:TOP_OPS]:
+      if dev_us(e) > 0:
+        print(f'  {dev_us(e) / 1e3 / reps:8.3f} ms/{unit} '
+              f'{e.count / reps:7.1f}/{unit}  {e.key[:70]}')
+
+  # 3a, 3b. The state-only path and the pixel path (one frame per tick and
+  # env), in turns (state, pixel, state, pixel) so that the two are compared
+  # within one run of the host.
+  zero_counts()
   torch.cuda.synchronize()
   t0 = time.perf_counter()
   vs = ct.vec_reset_chunked(ct.home_keys(0, N_ENVS, dev), cfg)
   torch.cuda.synchronize()
   reset_s = time.perf_counter() - t0
-  vs, _ = ct.vec_step_group(vs, draw(N_ENVS), cfg, RESET_BATCH)   # warm-up
-  vs0 = vs
-  start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-  start.record()
-  dones = 0
-  for _ in range(MAIN_GROUPS):
-    vs, outs = ct.vec_step_group(vs, draw(N_ENVS), cfg, RESET_BATCH)
-    dones = dones + outs.ended.sum()
-  end.record()
-  torch.cuda.synchronize()
-  main_ms = start.elapsed_time(end)
-  launches = {name: fn.launches for name, fn in wrappers.items()}
-  stepped = (vs.env.step - vs0.env.step) == MAIN_GROUPS * k
-  reset = vs.episode > vs0.episode
-  bad = int((~(stepped | reset)).sum())
-  if bad:
-    fail(f'{bad} envs neither stepped nor reset')
-  for name, count in launches.items():
-    if count == 0:
-      fail(f'kernel {name} was not launched on the main path')
-  sps = N_ENVS * k * MAIN_GROUPS / (main_ms / 1e3)
-  print(f'main path on {card}: reset of {N_ENVS} envs {reset_s:.2f} s; '
-        f'{MAIN_GROUPS} groups x {k} ticks x {N_ENVS} envs in '
-        f'{main_ms:.1f} ms = {sps:,.0f} env-steps/s '
-        f'({main_ms / MAIN_GROUPS:.2f} ms/group, {int(dones)} episodes '
-        f'ended, launches {launches})', flush=True)
+  reset_counts = read_counts('reset', ('noise2',))
+
+  def run_state(vs, groups):
+    """Warm-up group, then ``groups`` timed groups: (vs, ms, episodes)."""
+    vs, _ = ct.vec_step_group(vs, draw(N_ENVS), cfg, RESET_BATCH)
+    vs0 = vs
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    dones = 0
+    for _ in range(groups):
+      vs, outs = ct.vec_step_group(vs, draw(N_ENVS), cfg, RESET_BATCH)
+      dones = dones + outs.ended.sum()
+    end.record()
+    torch.cuda.synchronize()
+    check_advanced(vs, vs0, groups * k, 'state-only')
+    return vs, start.elapsed_time(end), int(dones)
+
+  def run_pixel(vs, groups):
+    """The same with frames, a pixel of every frame read: (vs, ms, sum of
+    those pixels, the last tick's frames)."""
+    vs, _, obs = ct.vec_step_group_obs(vs, draw(N_ENVS), cfg, RESET_BATCH,
+                                       core)
+    vs0 = vs
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    seen = torch.zeros((), dtype=torch.int64, device=dev)
+    for _ in range(groups):
+      vs, outs, obs = ct.vec_step_group_obs(vs, draw(N_ENVS), cfg,
+                                            RESET_BATCH, core)
+      seen += obs[:, :, 31, 31].sum()
+    end.record()
+    torch.cuda.synchronize()
+    check_advanced(vs, vs0, groups * k, 'pixel')
+    if obs.shape != (k, N_ENVS, cfg.size[1], cfg.size[0], 3) \
+        or obs.dtype != torch.uint8:
+      fail(f'pixel path: obs {tuple(obs.shape)} {obs.dtype}')
+    if int(seen) == 0 or int((obs[0] != obs[k - 1]).sum()) == 0:
+      fail('pixel path: the frames are empty or do not change over a group')
+    return vs, start.elapsed_time(end), int(seen), obs[k - 1]
+
+  add = lambda x, y: {name: x[name] + y[name] for name in x}
+  state_counts, pixel_counts = reset_counts, None
+  state_ms, pixel_ms = [], []
+  for turn in range(2):
+    zero_counts()
+    vs, ms, dones = run_state(vs, MAIN_GROUPS)
+    state_counts = add(state_counts, read_counts(
+        'state-only', ('group_tick', 'balance', 'noise2')))
+    state_ms.append(ms)
+    print(f'state-only path on {card}, turn {turn + 1}: {MAIN_GROUPS} groups '
+          f'x {k} ticks x {N_ENVS} envs in {ms:.1f} ms = '
+          f'{N_ENVS * k * MAIN_GROUPS / (ms / 1e3):,.0f} env-steps/s '
+          f'({ms / MAIN_GROUPS:.2f} ms/group, {dones} episodes ended)',
+          flush=True)
+    zero_counts()
+    vs, ms, seen, last = run_pixel(vs, PIXEL_GROUPS)
+    counts = read_counts('pixel', ('group_tick', 'balance', 'noise2',
+                                   'render_win79'))
+    if not torch.equal(last, core.observe_batch(vs.env)):
+      fail('pixel path: the last frame is not the frame of the final state')
+    del last
+    pixel_counts = counts if pixel_counts is None else add(pixel_counts,
+                                                           counts)
+    pixel_ms.append(ms)
+    print(f'pixel path on {card}, turn {turn + 1}: {PIXEL_GROUPS} groups x '
+          f'{k} ticks x {N_ENVS} envs in {ms:.1f} ms = '
+          f'{N_ENVS * k * PIXEL_GROUPS / (ms / 1e3):,.0f} env-steps/s '
+          f'({ms / PIXEL_GROUPS:.2f} ms/group, pixel checksum {seen})',
+          flush=True)
+  sps = 2 * N_ENVS * k * MAIN_GROUPS / (sum(state_ms) / 1e3)
+  pixel_sps = 2 * N_ENVS * k * PIXEL_GROUPS / (sum(pixel_ms) / 1e3)
+  print(f'both turns on {card}: reset of {N_ENVS} envs {reset_s:.2f} s; '
+        f'state-only {sps:,.0f} env-steps/s (launches {state_counts}); '
+        f'pixel {pixel_sps:,.0f} env-steps/s (launches {pixel_counts})',
+        flush=True)
 
   # Where a group's time goes: the reset pass alone (CUDA events), and the
-  # device's busy share and top operations over PROFILE_GROUPS groups.
+  # device's busy share and top operations of each path.
   done = torch.rand(N_ENVS, generator=gen, device=dev) < 0.1
   _, reset_ms = timed(lambda: env_lib._reset_pass(
       vs.env, done, vs.episode, vs.home_key, cfg, RESET_BATCH), 3)
   print(f'reset pass of {RESET_BATCH} worlds on {card}: {reset_ms:.2f} ms',
         flush=True)
-  acts = [draw(N_ENVS) for _ in range(PROFILE_GROUPS)]
+  box = [vs]
+
+  def state_group():
+    box[0], _ = ct.vec_step_group(box[0], draw(N_ENVS), cfg, RESET_BATCH)
+
+  def pixel_group():
+    box[0], _, frames = ct.vec_step_group_obs(box[0], draw(N_ENVS), cfg,
+                                              RESET_BATCH, core)
+
+  profile(state_group, PROFILE_GROUPS, 'group', 'state-only')
+  profile(pixel_group, PROFILE_GROUPS, 'group', 'pixel')
+  del box, vs
+  torch.cuda.empty_cache()
+
+  # 3c. The per-tick path: VecEnv, one frame batch per step.
+  zero_counts()
+  venv = ct.VecEnv(N_ENVS, cfg, seed=3, device=dev)
+  obs = venv.reset()
+  obs, _, _, _ = venv.step(draw(N_ENVS)[0])                       # warm-up
+  vs0 = venv.state
+  start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+  start.record()
+  seen = torch.zeros((), dtype=torch.int64, device=dev)
+  for i in range(TICKS):
+    obs, reward, done, info = venv.step(draw(N_ENVS)[0])
+    seen += obs[:, 31, 31].sum()
+  end.record()
   torch.cuda.synchronize()
-  with torch.profiler.profile(activities=[
-      torch.profiler.ProfilerActivity.CPU,
-      torch.profiler.ProfilerActivity.CUDA]) as prof:
-    t0 = time.perf_counter()
-    for a in acts:
-      vs, _ = ct.vec_step_group(vs, a, cfg, RESET_BATCH)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-  # Device-side entries only (kernels, copies): the host operators that
-  # launched them report the same device time again.
-  dev_us = lambda e: getattr(e, 'self_device_time_total', 0)
-  events = sorted((e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA),
-                  key=dev_us, reverse=True)
-  busy_ms = sum(dev_us(e) for e in events) / 1e3
-  print(f'profile of {PROFILE_GROUPS} groups on {card}: wall {wall_ms:.1f} '
-        f'ms, device busy {busy_ms:.1f} ms '
-        f'({100 * busy_ms / wall_ms:.1f}%); top device time:', flush=True)
-  for e in events[:TOP_OPS]:
-    if dev_us(e) > 0:
-      print(f'  {dev_us(e) / 1e3 / PROFILE_GROUPS:8.3f} ms/group '
-            f'{e.count // PROFILE_GROUPS:5d}/group  {e.key[:70]}')
+  tick_ms = start.elapsed_time(end)
+  tick_counts = read_counts('per-tick',
+                            ('tick', 'balance', 'noise2', 'render_win79'))
+  check_advanced(venv.state, vs0, TICKS, 'per-tick')
+  if obs.shape != (N_ENVS, cfg.size[1], cfg.size[0], 3) \
+      or info['semantic'].shape != (N_ENVS,) + tuple(cfg.area):
+    fail(f'per-tick path: obs {tuple(obs.shape)}, semantic '
+         f'{tuple(info["semantic"].shape)}')
+  if tick_counts['balance'] != (TICKS + 1) // k \
+      or tick_counts['tick'] != TICKS + 1:
+    fail(f'per-tick path: launches {tick_counts} over {TICKS + 1} ticks')
+  if not (torch.isfinite(reward).all() and int(seen) > 0):
+    fail('per-tick path: rewards not finite or frames empty')
+  tick_sps = N_ENVS * TICKS / (tick_ms / 1e3)
+  print(f'per-tick path on {card}: {TICKS} VecEnv.step x {N_ENVS} envs '
+        f'(reset_batch {venv.reset_batch}) in {tick_ms:.1f} ms = '
+        f'{tick_sps:,.0f} env-steps/s ({tick_ms / TICKS:.2f} ms/tick, '
+        f'launches {tick_counts})', flush=True)
+  profile(lambda: venv.step(draw(N_ENVS)[0]), 2 * PROFILE_GROUPS, 'tick',
+          'per-tick')
+  del venv, obs, vs0, info
+  torch.cuda.empty_cache()
 
   # 4. Kernel path == plain path on the card == the CPU, across episode
-  # ends.
+  # ends, at 13 envs: state-only groups, pixel groups, VecEnv ticks.
   small = dataclasses.replace(cfg, length=25)
   plain = dataclasses.replace(small, engine='plain', noise_mode='fast')
   va = ct.vec_reset(ct.home_keys(9, 13, dev), small)
@@ -314,13 +567,61 @@ def main():
     vc, oc = ct.vec_step_group(vc, a.cpu(), small, 4)
     if max_err(va, vb, f'small group {g}') or max_err(oa, ob, 'small outs'):
       fail(f'kernel path and plain path differ at 13 envs, group {g}')
-    if (max_err(va, to_device(vc, dev), f'small group {g} vs CPU')
-        or max_err(oa, to_device(oc, dev), 'small outs vs CPU')):
+    if (max_err(va, vc, f'small group {g} vs CPU')
+        or max_err(oa, oc, 'small outs vs CPU')):
       fail(f'the card and the CPU differ at 13 envs, group {g}')
   print(f'13 envs x 3 groups: kernel path == plain path == CPU '
         f'({int(va.episode.sum())} episodes begun, '
         f'{int(va.pending.sum())} pending)', flush=True)
 
+  core_cpu = ct.CrafterEnv(small, 'cpu')
+  va = ct.vec_reset(ct.home_keys(7, 13, dev), small)
+  vb = ct.vec_reset(ct.home_keys(7, 13, dev), plain)
+  vc = ct.vec_reset(ct.home_keys(7, 13, 'cpu'), small)
+  for g in range(3):
+    a = draw(13)
+    va, oa, fa = ct.vec_step_group_obs(va, a, small, 4, core)
+    vb, ob, fb = ct.vec_step_group_obs(vb, a, plain, 4, core)
+    vc, oc, fc = ct.vec_step_group_obs(vc, a.cpu(), small, 4, core_cpu)
+    if (max_err(va, vb, f'pixel group {g}') or max_err(oa, ob, 'pixel outs')
+        or max_err(fa, fb, 'pixel frames')):
+      fail(f'pixel path: kernels and twins differ at 13 envs, group {g}')
+    if (max_err(va, vc, f'pixel group {g} vs CPU')
+        or max_err(oa, oc, 'pixel outs vs CPU')
+        or max_err(fa, fc, 'pixel frames vs CPU')):
+      fail(f'pixel path: the card and the CPU differ at 13 envs, group {g}')
+  print(f'13 envs x 3 pixel groups: kernel path == plain path == CPU, '
+        f'frames included ({int(va.episode.sum())} episodes begun)',
+        flush=True)
+
+  ea = ct.VecEnv(13, small, seed=4, reset_batch=4, device=dev)
+  ec = ct.VecEnv(13, small, seed=4, reset_batch=4, device='cpu')
+  if max_err(ea.reset(), ec.reset(), 'VecEnv reset frames'):
+    fail('VecEnv.reset: the card and the CPU differ')
+  for t in range(30):
+    a = draw(13)[0]
+    ra, rc = ea.step(a), ec.step(a.cpu())
+    if any(max_err(x, y, f'VecEnv tick {t}') for x, y in zip(ra, rc)):
+      fail(f'VecEnv.step: the card and the CPU differ at tick {t}')
+  print(f'13 envs x 30 VecEnv ticks: card == CPU, obs, reward, done and '
+        f'info ({int(ea.state.episode.sum())} episodes begun)', flush=True)
+
+  all_steps = torch.arange(0, 10001, dtype=torch.int32)
+  if not torch.equal(ct.daylight(all_steps.to(dev), cfg.day_length).cpu(),
+                     ct.daylight(all_steps, cfg.day_length)):
+    fail('daylight on the card differs from the CPU\'s')
+  print('daylight: card == CPU for steps 0..10000', flush=True)
+
+  launches = {
+      'group_tick': state_counts['group_tick'],
+      'group_tick_snaps': pixel_counts['group_tick'],
+      'tick': tick_counts['tick'],
+      'balance': sum(cn['balance'] for cn in (state_counts, pixel_counts,
+                                              tick_counts)),
+      'noise2': sum(cn['noise2'] for cn in (state_counts, pixel_counts,
+                                            tick_counts)),
+      'render_win79': pixel_counts['render_win79']
+      + tick_counts['render_win79']}
   kernels = []
   for row in rows:
     bound_bytes = row.pop('bytes') / HBM_BYTES_PER_S * 1e3
@@ -333,9 +634,13 @@ def main():
         'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')})
     print(f'{row["name"]} on {card}: {row["ms"]:.3f} ms (plain '
           f'{row["plain_ms"]:.3f} ms, bound {row["bound_ms"]:.4f} ms by '
-          f'{row["bound_by"]}), {row["launches"]} launches on the main path')
-  print(json.dumps({'kernels': kernels, 'env_steps_per_s': sps,
-                    'card': card}))
+          f'{row["bound_by"]}), {row["launches"]} launches on the paths')
+  print(json.dumps({
+      'kernels': kernels, 'card': card,
+      'env_steps_per_s': {'state_only': sps, 'pixel': pixel_sps,
+                          'per_tick': tick_sps},
+      'launches_by_path': {'state_only': state_counts, 'pixel': pixel_counts,
+                           'per_tick': tick_counts}}))
   print(card)
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': kind, 'count': torch.cuda.device_count()}}))

@@ -3,28 +3,40 @@ kernels written by hand for Hopper (sm_90a).
 
 A port of ``crafter_tpu`` (JAX on a TPU), which stays in the repository as
 the reference.  This package imports neither JAX nor ``crafter_tpu``.  It
-covers the state-only main path: ``vec_reset_chunked`` then
-``vec_step_group`` over a balance-cadence group, with the group tick, the
-group-end balance and the worldgen noise as CUDA kernels
-(``step_cuda.py``, ``ops/noise_cuda.py``, sources in ``csrc/``) and plain
-PyTorch twins beside them.  Entry points run on ``cuda`` unless given
-``device='cpu'``.
+covers the batched engine: ``vec_reset_chunked``, then either whole
+balance-cadence groups (``vec_step_group`` state only,
+``vec_step_group_obs`` with one frame a tick) or single ticks (``vec_step``,
+``VecEnv``), with the group tick, the tick, the balance, the render and the
+worldgen noise as CUDA kernels (``step_cuda.py``, ``render_cuda.py``,
+``ops/noise_cuda.py``, sources in ``csrc/``) and plain PyTorch twins beside
+them.  Entry points run on ``cuda`` unless given ``device='cpu'``.
 """
 
-from . import prng, rules
+from . import prng, render, rules
 from .config import DEFAULT_CONFIG, EnvConfig
 from .convert import state_from_numpy, to_numpy
-from .env import (VecState, home_keys, vec_reset, vec_reset_chunked,
-                  vec_step_group)
-from .state import EntMaps, Player, State, daylight
-from .step import StepOut, balance_plain, step_group_plain
-from .step_cuda import balance, group_tick
+from .env import (CrafterEnv, VecEnv, VecState, home_keys, vec_reset,
+                  vec_reset_chunked, vec_step, vec_step_group,
+                  vec_step_group_obs, vec_step_k)
+from .render import (Atlas, bake_atlas, frame_image, noise_seed, pack_cells,
+                     render_fields, render_frames, render_px_fields,
+                     render_win79_plain, window_prep)
+from .render_cuda import render_win79
+from .state import EntMaps, Player, State, daylight, semantic_view
+from .step import (GroupSnaps, StepOut, balance_plain, finish_tick,
+                   step_batch, step_group_plain, tick_plain)
+from .step_cuda import balance, group_tick, tick
 from .worldgen import generate_world
 
 __all__ = [
-    'DEFAULT_CONFIG', 'EntMaps', 'EnvConfig', 'Player', 'State', 'StepOut',
-    'VecState', 'balance', 'balance_plain', 'daylight', 'generate_world',
-    'group_tick', 'home_keys', 'prng', 'rules', 'state_from_numpy',
-    'step_group_plain', 'to_numpy', 'vec_reset', 'vec_reset_chunked',
-    'vec_step_group',
+    'Atlas', 'CrafterEnv', 'DEFAULT_CONFIG', 'EntMaps', 'EnvConfig',
+    'GroupSnaps', 'Player', 'State', 'StepOut', 'VecEnv', 'VecState',
+    'bake_atlas', 'balance', 'balance_plain', 'daylight', 'finish_tick',
+    'frame_image', 'generate_world', 'group_tick', 'home_keys', 'noise_seed',
+    'pack_cells', 'prng', 'render', 'render_fields', 'render_frames',
+    'render_px_fields', 'render_win79', 'render_win79_plain', 'rules',
+    'semantic_view', 'state_from_numpy', 'step_batch', 'step_group_plain',
+    'tick', 'tick_plain', 'to_numpy', 'vec_reset', 'vec_reset_chunked',
+    'vec_step', 'vec_step_group', 'vec_step_group_obs', 'vec_step_k',
+    'window_prep',
 ]

@@ -40,7 +40,9 @@ def _build(cls, tree, device):
     if sub is not None:
       kw[f.name] = _build(sub, v, device)
     else:
-      kw[f.name] = _tensor(v, device, key=f.name in ('key', 'home_key'))
+      # The global tick counter lives on the host (env.VecState).
+      kw[f.name] = _tensor(v, 'cpu' if f.name == 'tick' else device,
+                           key=f.name in ('key', 'home_key'))
   return cls(**kw)
 
 
@@ -52,7 +54,11 @@ def state_from_numpy(tree, device='cuda'):
 
 
 def to_numpy(obj):
-  """Nested dict of numpy arrays from a state dataclass (keys as uint32)."""
+  """Nested dict of numpy arrays from a dataclass of tensors (a state, a
+  ``StepOut``, a ``GroupSnaps``), a dict of tensors (an ``info``) or a
+  tensor (frames); PRNG keys come out as uint32 key data."""
+  if isinstance(obj, dict):
+    return {name: to_numpy(v) for name, v in obj.items()}
   if dataclasses.is_dataclass(obj):
     out = {}
     for f in dataclasses.fields(obj):

@@ -1,27 +1,92 @@
-"""The batched engine loop: N envs stepped a balance-cadence group at a time,
-with group-end chunk balancing and partial-batch auto-reset.
+"""The batched engine: N envs in lockstep with partial-batch auto-reset,
+stepped a balance-cadence group at a time (state only, or with one frame a
+tick) or a tick at a time.
 
-The port's counterpart of the state-only main path of ``crafter_tpu/env.py``
-(``VecState``, ``home_keys``, ``vec_reset``, ``vec_reset_chunked``,
-``vec_step_group``, ``_group_finish``, ``_reset_pass``).  For the same keys
-and actions it produces the JAX package's states leaf for leaf.
+The port's counterpart of ``crafter_tpu/env.py``: ``CrafterEnv`` (the
+functional core over batched states), ``VecState``, ``home_keys``,
+``vec_reset``, ``vec_reset_chunked``, the group paths ``vec_step_group`` and
+``vec_step_group_obs``, the per-tick ``vec_step`` / ``vec_step_k`` and
+``VecEnv``.  For the same keys and actions it produces the JAX package's
+states, results and frames leaf for leaf.
 
-``cfg.engine`` picks the group tick and balance backend ('auto':
-the CUDA kernels for CUDA tensors, 'plain': the PyTorch twins);
-``cfg.noise_mode`` the worldgen noise backend likewise.
+``cfg.engine`` picks the backend of the tick, group tick, balance and
+render ('auto': the CUDA kernels for CUDA tensors, 'plain': the PyTorch
+twins); ``cfg.noise_mode`` the worldgen noise backend likewise.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+from typing import Optional
 
+import numpy as np
 import torch
 
 from . import prng, rules
+from . import render as render_lib
+from . import state as state_lib
 from . import step as step_lib
 from . import step_cuda, worldgen
-from .config import EnvConfig
+from .config import DEFAULT_CONFIG, EnvConfig
 from .state import EntMaps, Player, State
+
+# The spaces of the reference's Gym API, as plain records.
+DiscreteSpace = collections.namedtuple('DiscreteSpace', 'n')
+BoxSpace = collections.namedtuple('BoxSpace', 'low, high, shape, dtype')
+
+
+class CrafterEnv:
+  """The functional env core over batched states: every state leaf, key and
+  action has a leading env axis (a single ``(2,)`` key makes a batch of
+  one)."""
+
+  def __init__(self, cfg: EnvConfig = DEFAULT_CONFIG, device='cuda'):
+    self.cfg = cfg
+    self.device = torch.device(device)
+    self.atlas = render_lib.bake_atlas(cfg.size, cfg.view, cfg.item_rows,
+                                       self.device)
+
+  @property
+  def num_actions(self) -> int:
+    return rules.N_ACTIONS
+
+  def reset(self, key: torch.Tensor):
+    """Fresh worlds from (N, 2) key words: ``(state, obs)``."""
+    key = key.to(self.device)
+    state = worldgen.generate_world(key.reshape(-1, 2), self.cfg)
+    return state, self.observe(state)
+
+  def step(self, state: State, action: torch.Tensor):
+    """One tick, balance on each env's own cadence: ``(state, obs, reward,
+    done, info)``."""
+    state, out = step_lib.step_batch(state, action, self.cfg)
+    reward = out.reward if self.cfg.reward else torch.zeros_like(out.reward)
+    return state, self.observe(state), reward, out.done, self.info(state, out)
+
+  def observe(self, state: State) -> torch.Tensor:
+    """Frames (N, H, W, 3) uint8."""
+    return render_lib.render(state, self.cfg, self.atlas, self.cfg.size)
+
+  observe_batch = observe
+
+  def observe_px(self, state: State) -> torch.Tensor:
+    """Raw packed pixel lanes (N, C) int32 ``r | g<<8 | b<<16``."""
+    return render_lib.render_px_fields(
+        state.mat_map, state.ent.etype, state.ent.aux, state.ent.facing,
+        state.player.pos, state.player.facing, state.player.sleeping,
+        state.player.inventory, state.step, state.key, self.cfg, self.atlas)
+
+  def info(self, state: State, out: step_lib.StepOut) -> dict:
+    """The reference's info dict, as tensors (env.py:108-115)."""
+    return dict(
+        inventory=state.player.inventory,
+        achievements=state.player.achievements,
+        discount=1.0 - out.dead.to(torch.float32),
+        semantic=state_lib.semantic_view(state, self.cfg).to(torch.uint8),
+        player_pos=state.player.pos,
+        reward=out.reward,
+        ended=out.ended)
 
 
 @dataclasses.dataclass
@@ -31,7 +96,8 @@ class VecState:
   env: State
   episode: torch.Tensor   # (N,) int32 episodes started
   home_key: torch.Tensor  # (N, 2) int64 per-env base key words
-  tick: torch.Tensor      # () int32 global tick counter
+  tick: torch.Tensor      # () int32 global tick counter, kept on the host:
+  #                         the cadence of balance and reset branches on it
   pending: torch.Tensor   # (N,) bool finished but not yet reset
 
 
@@ -49,7 +115,7 @@ def vec_reset(home_key: torch.Tensor, cfg: EnvConfig) -> VecState:
   return VecState(env=env,
                   episode=torch.ones((n,), dtype=torch.int32, device=dev),
                   home_key=home_key,
-                  tick=torch.zeros((), dtype=torch.int32, device=dev),
+                  tick=torch.zeros((), dtype=torch.int32),
                   pending=torch.zeros((n,), dtype=torch.bool, device=dev))
 
 
@@ -87,6 +153,107 @@ def vec_step_group(vs: VecState, actions: torch.Tensor, cfg: EnvConfig,
   else:
     env, raw, occ_pre = step_cuda.group_tick(vs.env, actions, cfg)
   return _group_finish(vs, env, raw, occ_pre, cfg, reset_batch)
+
+
+def vec_step_group_obs(vs: VecState, actions: torch.Tensor, cfg: EnvConfig,
+                       reset_batch: int, core: CrafterEnv):
+  """:func:`vec_step_group` plus one observation frame per tick: the pixel
+  path.
+
+  Frames 0..K-2 come from the snapshots the group kernel writes after each
+  tick, frame K-1 from the post-balance, post-reset state (finished envs
+  show their next episode's first frame), all K*N in one batched render.
+  Returns ``(vs, outs, obs)`` with ``obs`` (K, N, H, W, 3) uint8, ``obs[t]``
+  the frame after tick t.
+  """
+  k = cfg.balance_every
+  if actions.shape[0] != k:
+    raise ValueError(f'actions {tuple(actions.shape)}: want ({k}, N)')
+  n = actions.shape[1]
+  key0, step0 = vs.env.key, vs.env.step   # episode keys: fixed over a group
+  if cfg.engine == 'plain':
+    env, raw, occ_pre, snaps = step_lib.step_group_plain(
+        vs.env, actions, cfg, snapshots=True)
+  else:
+    env, raw, occ_pre, snaps = step_cuda.group_tick(vs.env, actions, cfg,
+                                                    snapshots=True)
+  vs, outs = _group_finish(vs, env, raw, occ_pre, cfg, reset_batch)
+
+  # Rows are (tick 0..K-2) x N from the snapshots, then the N final frames:
+  # (K, N) order.  The final frames' packed plane goes into the row the
+  # kernel left free.
+  fin = vs.env
+  snaps.packed[k - 1] = render_lib.pack_cells(
+      fin.mat_map, fin.ent.etype, fin.ent.aux, fin.ent.facing)
+  km1 = k - 1
+  steps_mid = (step0[None] + 1
+               + torch.arange(km1, device=step0.device,
+                              dtype=step0.dtype)[:, None])
+  rows = lambda mid, last: torch.cat([mid.reshape((km1 * n,) + last.shape[1:]),
+                                      last])
+  steps = rows(steps_mid, fin.step)
+  seeds = rows(render_lib.noise_seed(key0[None].expand(km1, n, 2), steps_mid),
+               render_lib.noise_seed(fin.key, fin.step))
+  obs = render_lib.render_frames(
+      snaps.packed.reshape(k * n, -1),
+      rows(torch.stack([snaps.px, snaps.py], -1), fin.player.pos),
+      rows(snaps.facing, fin.player.facing),
+      rows(snaps.sleeping, fin.player.sleeping.to(torch.int32)),
+      rows(snaps.inv, fin.player.inventory), steps, seeds, cfg, core.atlas,
+      cfg.size)
+  return vs, outs, obs.reshape((k, n) + obs.shape[1:])
+
+
+def vec_step(vs: VecState, actions: torch.Tensor, cfg: EnvConfig,
+             reset_batch: int, reset_every: int = 1,
+             balance: Optional[bool] = None):
+  """One batched tick and a partial-batch auto-reset pass.
+
+  Returns ``(vs, out, stepped_env)``: finished envs have been replaced in
+  ``vs`` by fresh worlds (up to ``reset_batch`` a pass; the rest stay
+  latched ``pending`` for the next pass), ``stepped_env`` is the state
+  before the reset, for the terminal step's info.  ``reset_every``: run the
+  reset pass on every that-many-th tick only.  ``balance``: None balances
+  on the global cadence (every ``cfg.balance_every``-th tick), True / False
+  force it for this tick.  Both cadences are branches on the host's tick
+  count.
+  """
+  tick = vs.tick + 1
+  if balance is None:
+    balance = int(tick) % cfg.balance_every == 0
+  env, out = step_lib.step_batch(vs.env, actions, cfg, balance=balance)
+  stepped_env = env
+  # A pending env counts as done whatever this tick says (a dead env
+  # stepped again can regenerate health); `ended` pulses only on the tick
+  # an episode really finishes.
+  done = out.done | vs.pending
+  out = dataclasses.replace(out, done=done, ended=out.done & ~vs.pending)
+  if reset_every > 1 and int(tick) % reset_every != 0:
+    episode, pending = vs.episode, done   # skipped: everyone stays pending
+  else:
+    env, episode, pending = _reset_pass(env, done, vs.episode, vs.home_key,
+                                        cfg, reset_batch)
+  vs = VecState(env=env, episode=episode, home_key=vs.home_key, tick=tick,
+                pending=pending)
+  return vs, out, stepped_env
+
+
+def vec_step_k(vs: VecState, actions: torch.Tensor, cfg: EnvConfig,
+               reset_batch: int):
+  """``cfg.balance_every`` ticks of :func:`vec_step` with the balance on the
+  group's last tick.  ``actions`` (K, N); returns ``(vs, outs)`` with
+  (K, N) StepOut leaves."""
+  k = cfg.balance_every
+  if actions.shape[0] != k:
+    raise ValueError(f'actions {tuple(actions.shape)}: want ({k}, N)')
+  outs = []
+  for i in range(k):
+    vs, out, _ = vec_step(vs, actions[i], cfg, reset_batch,
+                          balance=(i == k - 1))
+    outs.append(out)
+  return vs, step_lib.StepOut(**{
+      f.name: torch.stack([getattr(o, f.name) for o in outs])
+      for f in dataclasses.fields(step_lib.StepOut)})
 
 
 def _group_finish(vs: VecState, env: State, raw: step_lib.StepOut,
@@ -173,3 +340,44 @@ def _reset_pass(env: State, done: torch.Tensor, episode: torch.Tensor,
       chunk_touched=merge(env.chunk_touched, fresh.chunk_touched))
   episode = torch.where(selected, ep_next, episode)
   return env, episode, done & ~selected
+
+
+class VecEnv:
+  """N lockstep envs on the device with partial-batch auto-reset.
+
+  ``step(actions)`` returns the observation after the auto-reset, so a
+  finished env hands back the first frame of its next episode; the terminal
+  step's reward, done and info describe the episode that just ended.
+  """
+
+  def __init__(self, num_envs: int, cfg: EnvConfig = DEFAULT_CONFIG,
+               seed: int = 0, reset_batch: Optional[int] = None,
+               device='cuda'):
+    self.num_envs = num_envs
+    self.cfg = cfg
+    self.device = torch.device(device)
+    self.core = CrafterEnv(cfg, self.device)
+    self.reset_batch = min(num_envs, reset_batch or max(32, num_envs // 128))
+    self._home = home_keys(seed, num_envs, self.device)
+    self.state: Optional[VecState] = None
+    self.single_observation_space = BoxSpace(
+        0, 255, tuple(cfg.size) + (3,), np.uint8)
+    self.single_action_space = DiscreteSpace(rules.N_ACTIONS)
+    self.observation_space = self.single_observation_space
+    self.action_space = self.single_action_space
+    self.action_names = list(rules.ACTIONS)
+
+  def reset(self) -> torch.Tensor:
+    self.state = vec_reset_chunked(self._home, self.cfg)
+    return self.core.observe_batch(self.state.env)
+
+  def step(self, actions):
+    actions = torch.as_tensor(actions, dtype=torch.int32, device=self.device)
+    self.state, out, stepped = vec_step(self.state, actions, self.cfg,
+                                        self.reset_batch)
+    # info describes the terminal step (the state before the reset), obs
+    # the state after it.
+    info = self.core.info(stepped, out)
+    obs = self.core.observe_batch(self.state.env)
+    reward = out.reward if self.cfg.reward else torch.zeros_like(out.reward)
+    return obs, reward, out.done, info

@@ -11,12 +11,16 @@ values in ``[0, 2**32)`` (``crafter_tpu_torch.prng``).
 from __future__ import annotations
 
 import dataclasses
+import functools
+import pathlib
 
 import numpy as np
 import torch
 
 from . import rules
 from .config import EnvConfig
+
+ASSETS = pathlib.Path(__file__).parent / 'assets'
 
 
 @dataclasses.dataclass
@@ -59,19 +63,53 @@ class State:
   chunk_touched: torch.Tensor    # (N, ncx, ncy) bool
 
 
-def daylight(step: torch.Tensor, day_length: int) -> torch.Tensor:
-  """Day/night curve 1 - |cos(pi*((t/300)%1 + 0.3))|^3 (env.py:135-139).
+@functools.lru_cache(maxsize=None)
+def _daylight_table(device: str):
+  """The committed light table (``assets/daylight.npz``) as
+  ``(day_length, (T,) float32 tensor)``."""
+  with np.load(ASSETS / 'daylight.npz') as f:
+    return int(f['day_length']), torch.as_tensor(f['table'], device=device)
 
-  float32 throughout, with the division as a multiply by the float32
-  reciprocal: XLA rewrites division by a constant that way, and the JAX
-  package's numbers are the reference.  The cosine itself may differ from
-  XLA's in the last bits; the balance phase only reads the light through
-  integer truncations, which agree (tests/test_torch_step.py).
-  """
+
+def _daylight_computed(step: torch.Tensor, day_length: int) -> torch.Tensor:
   inv = np.float32(1.0) / np.float32(day_length)
   progress = torch.remainder(step.to(torch.float32) * float(inv), 1.0) + 0.3
   c = torch.cos(float(np.float32(np.pi)) * progress).abs()
   return 1.0 - c * (c * c)
+
+
+def daylight(step: torch.Tensor, day_length: int) -> torch.Tensor:
+  """Day/night curve 1 - |cos(pi*((t/300)%1 + 0.3))|^3 (env.py:135-139).
+
+  The renderer multiplies pixels by the light and floors, so the light has
+  to be the JAX package's bit for bit, and the same on the CPU and the
+  card.  No float32 cosine at hand gives that (torch's differs from XLA's
+  in the last bits at 39% of the steps), so for the default day length the
+  value is looked up by step in a committed table of the JAX function
+  under ``jax.jit`` (``tools/pack_torch_textures.py``; steps 0..10000, the
+  episode cap).  Another day length, or a step beyond the table, takes the
+  computed form: float32 throughout, the division as a multiply by the
+  float32 reciprocal as XLA rewrites it.  That form agrees with the JAX
+  package wherever the balance reads it (through integer truncations,
+  tests/test_torch_step.py) but not in every bit.
+  """
+  tab_len, table = _daylight_table(str(step.device))
+  if day_length != tab_len:
+    return _daylight_computed(step, day_length)
+  last = table.shape[0] - 1
+  # Both forms and a select: no host read of the steps, so no device sync.
+  return torch.where((step >= 0) & (step <= last),
+                     table[step.clamp(0, last).long()],
+                     _daylight_computed(step, day_length))
+
+
+def semantic_view(state: State, cfg: EnvConfig) -> torch.Tensor:
+  """Material + entity-type id map (N, W, H) int32 (engine.py:251-264):
+  entity type t shows as N_MATERIALS + t - 1, else the cell's material."""
+  et = state.ent.etype.to(torch.int32)
+  flat = torch.where(et > 0, rules.N_MATERIALS + et - 1,
+                     state.mat_map.to(torch.int32))
+  return flat.reshape(flat.shape[:-1] + tuple(cfg.area))
 
 
 def init_player(cfg: EnvConfig, n: int, device) -> Player:

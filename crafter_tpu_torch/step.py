@@ -53,6 +53,21 @@ class StepOut:
   ended: torch.Tensor    # bool — the episode ended on this tick
 
 
+@dataclasses.dataclass
+class GroupSnaps:
+  """Per-tick render snapshots of a group for ticks 0..K-2, tick-major (the
+  group's last frame is rendered from the post-balance, post-reset state by
+  the caller).  All the renderer reads of a cell is one byte: material id
+  | cell sprite id << 4 (the ``render.pack_cells`` encoding)."""
+
+  packed: torch.Tensor    # (K, N, C) uint8; row K-1 is left for the caller
+  px: torch.Tensor        # (K-1, N) int32 player x
+  py: torch.Tensor        # (K-1, N) int32 player y
+  facing: torch.Tensor    # (K-1, N) int32 player facing
+  sleeping: torch.Tensor  # (K-1, N) int32 0/1
+  inv: torch.Tensor       # (K-1, N, 16) int32 inventory
+
+
 # ---------------------------------------------------------------------------
 # Hash primitives (step.py:125-166, 797-815) on wrapping int32 tensors.
 # ---------------------------------------------------------------------------
@@ -558,72 +573,195 @@ def mob_core(M, T, Hp, A, F, px, py, sleeping, seed, plant_idx,
 # ---------------------------------------------------------------------------
 
 
-def step_group_plain(states: State, actions: torch.Tensor, cfg: EnvConfig):
-  """K = ``actions.shape[0]`` ticks of every env, without balance or reset.
-
-  ``actions`` (K, N) int.  Returns ``(states, raw, occ_pre)`` as
-  ``step_group_batch`` does: ``raw`` holds (K, N) per-tick results before
-  latching, ``occ_pre`` (N, C) uint8 is the OR of post-tick occupancy over
-  ticks 0..K-2.
-  """
+def _unpack(states: State, cfg: EnvConfig):
+  """A state as the int32 working set of a tick: the five (N, W, H) grids
+  (copies), the player scalars, inventory and achievements."""
   w, h = cfg.area
-  k, n = actions.shape
+  n = states.step.shape[0]
   i32 = lambda v: v.to(torch.int32)
   grid = lambda v: i32(v).reshape(n, w, h).clone()
-  M, T, Hp, A, F = (grid(states.mat_map), grid(states.ent.etype),
-                    grid(states.ent.health), grid(states.ent.aux),
-                    grid(states.ent.facing))
+  grids = (grid(states.mat_map), grid(states.ent.etype),
+           grid(states.ent.health), grid(states.ent.aux),
+           grid(states.ent.facing))
   p = states.player
-  fac, px, py = i32(p.facing), i32(p.pos[:, 0]), i32(p.pos[:, 1])
-  slp = p.sleeping.clone()
-  hu, th, fa, re, lh = (i32(p.hunger), i32(p.thirst), i32(p.fatigue),
-                        i32(p.recover), i32(p.last_health))
-  elh = i32(states.env_last_health)
-  inv, ach, unl = i32(p.inventory), i32(p.achievements), states.unlocked
-  step0 = i32(states.step)
-  k0, k1 = key_words_i32(states.key)
-  occ = torch.zeros_like(T)
-  rews, dones, deads = [], [], []
-  for t in range(k):
-    step_t = step0 + (t + 1)
-    base = fmix(k0 ^ fmix(k1 + step_t * i32c(0x9E3779B9)))
-    s_mob = fmix(base + i32c(0x85EBCA6B))
-    flat = lambda g: g.view(n, w * h)
-    (px, py, fac, slp, hu, th, fa, re, lh, inv, ach, plant_idx) = \
-        player_core(flat(M), flat(T), flat(Hp), flat(A), i32(actions[t]),
-                    fac, px, py, slp, hu, th, fa, re, lh, inv, ach, base,
-                    cfg)
-    M, T, Hp, A, F, dmg = mob_core(M, T, Hp, A, F, px, py, slp, s_mob,
-                                   plant_idx, cfg)
-    inv = inv.clone()
-    inv[:, rules.ITEM_HEALTH] = (inv[:, rules.ITEM_HEALTH] - dmg).clamp_min(0)
-    # Reward / done (the non-balance part of _finish_tick).
-    hp = inv[:, rules.ITEM_HEALTH]
-    new_unlock = ((ach > 0) & ~unl).any(1)
-    rews.append(fma32((hp - elh).to(torch.float32), INV10,
-                      torch.where(new_unlock, 1.0, 0.0)))
-    unl = unl | (ach > 0)
-    elh = hp
-    dead = hp <= 0
-    dones.append(dead | (step_t >= cfg.length) if cfg.length else dead)
-    deads.append(dead)
-    if t < k - 1:
-      occ = occ | T
-  narrow = lambda g, ref: g.reshape(n, w * h).to(ref.dtype)
+  scal = (i32(p.facing), i32(p.pos[:, 0]), i32(p.pos[:, 1]),
+          p.sleeping.clone(), i32(p.hunger), i32(p.thirst), i32(p.fatigue),
+          i32(p.recover), i32(p.last_health))
+  return grids, scal, i32(p.inventory), i32(p.achievements)
+
+
+def _repack(states: State, grids, scal, inv, ach, **fields) -> State:
+  """The inverse of :func:`_unpack`, narrowing to the storage dtypes."""
+  M, T, Hp, A, F = grids
+  fac, px, py, slp, hu, th, fa, re, lh = scal
+  n = M.shape[0]
+  narrow = lambda g, ref: g.reshape(n, -1).to(ref.dtype)
   player = Player(pos=torch.stack([px, py], 1), facing=fac, inventory=inv,
                   achievements=ach, sleeping=slp, hunger=hu, thirst=th,
                   fatigue=fa, recover=re, last_health=lh)
-  states = dataclasses.replace(
+  return dataclasses.replace(
       states, mat_map=narrow(M, states.mat_map),
       ent=EntMaps(etype=narrow(T, states.ent.etype),
                   health=narrow(Hp, states.ent.health),
                   aux=narrow(A, states.ent.aux),
                   facing=narrow(F, states.ent.facing)),
-      player=player, step=step0 + k, env_last_health=elh, unlocked=unl)
+      player=player, **fields)
+
+
+def _tick_core(grids, scal, inv, ach, action, s_player, s_mob,
+               cfg: EnvConfig):
+  """One tick of player phase + mob phase, the mob damage taken off the
+  inventory's health.  Returns ``(grids, scal, inv, ach)``."""
+  M, T, Hp, A, F = grids
+  n = M.shape[0]
+  flat = lambda g: g.view(n, -1)
+  fac, px, py, slp, hu, th, fa, re, lh = scal
+  (px, py, fac, slp, hu, th, fa, re, lh, inv, ach, plant_idx) = \
+      player_core(flat(M), flat(T), flat(Hp), flat(A), action.to(torch.int32),
+                  fac, px, py, slp, hu, th, fa, re, lh, inv, ach, s_player,
+                  cfg)
+  M, T, Hp, A, F, dmg = mob_core(M, T, Hp, A, F, px, py, slp, s_mob,
+                                 plant_idx, cfg)
+  inv = inv.clone()
+  inv[:, rules.ITEM_HEALTH] = (inv[:, rules.ITEM_HEALTH] - dmg).clamp_min(0)
+  return ((M, T, Hp, A, F), (fac, px, py, slp, hu, th, fa, re, lh), inv, ach)
+
+
+def _reward_done(inv, ach, unl, elh, step_t, cfg: EnvConfig):
+  """Reward, done and dead of a tick (env.py:97-107), with the updated
+  unlocked flags and reward memory."""
+  hp = inv[:, rules.ITEM_HEALTH]
+  new_unlock = ((ach > 0) & ~unl).any(1)
+  # (hp - elh) / 10 + bonus, fused as XLA fuses the reference.
+  reward = fma32((hp - elh).to(torch.float32), INV10,
+                 torch.where(new_unlock, 1.0, 0.0))
+  dead = hp <= 0
+  done = dead | (step_t >= cfg.length) if cfg.length else dead
+  return reward, done, dead, unl | (ach > 0), hp
+
+
+def tick_plain(states: State, actions: torch.Tensor, s_player: torch.Tensor,
+               s_mob: torch.Tensor, cfg: EnvConfig) -> State:
+  """One tick of player phase + mob phase for every env, given the tick's
+  two seeds (N,) int32 (``_tick_pallas``'s function): planes and player
+  updated, the mob damage applied to inventory health; step, reward memory
+  and unlocked flags untouched (:func:`finish_tick` does those)."""
+  grids, scal, inv, ach = _tick_core(*_unpack(states, cfg), actions,
+                                     s_player, s_mob, cfg)
+  return _repack(states, grids, scal, inv, ach)
+
+
+def step_group_plain(states: State, actions: torch.Tensor, cfg: EnvConfig,
+                     snapshots: bool = False):
+  """K = ``actions.shape[0]`` ticks of every env, without balance or reset.
+
+  ``actions`` (K, N) int.  Returns ``(states, raw, occ_pre)`` as
+  ``step_group_batch`` does: ``raw`` holds (K, N) per-tick results before
+  latching, ``occ_pre`` (N, C) uint8 is the OR of post-tick occupancy over
+  ticks 0..K-2.  With ``snapshots`` a :class:`GroupSnaps` of the state after
+  each tick t < K-1 follows.
+  """
+  from . import render as render_lib
+  k, n = actions.shape
+  if snapshots and k < 2:
+    raise ValueError('snapshots need a group of at least 2 ticks')
+  grids, scal, inv, ach = _unpack(states, cfg)
+  elh = states.env_last_health.to(torch.int32)
+  unl = states.unlocked
+  step0 = states.step.to(torch.int32)
+  k0, k1 = key_words_i32(states.key)
+  occ = torch.zeros_like(grids[1])
+  rews, dones, deads, snaps = [], [], [], []
+  for t in range(k):
+    step_t = step0 + (t + 1)
+    base = fmix(k0 ^ fmix(k1 + step_t * i32c(0x9E3779B9)))
+    s_mob = fmix(base + i32c(0x85EBCA6B))
+    grids, scal, inv, ach = _tick_core(grids, scal, inv, ach, actions[t],
+                                       base, s_mob, cfg)
+    reward, done, dead, unl, elh = _reward_done(inv, ach, unl, elh, step_t,
+                                                cfg)
+    rews.append(reward)
+    dones.append(done)
+    deads.append(dead)
+    if t < k - 1:
+      occ = occ | grids[1]
+      if snapshots:
+        M, T, _, A, F = (g.reshape(n, -1) for g in grids)
+        snaps.append((render_lib.pack_cells(M, T, A, F), scal[1], scal[2],
+                      scal[0], scal[3].to(torch.int32), inv))
+  states = _repack(states, grids, scal, inv, ach, step=step0 + k,
+                   env_last_health=elh, unlocked=unl)
   done = torch.stack(dones)
   raw = StepOut(reward=torch.stack(rews), done=done, dead=torch.stack(deads),
                 ended=done)
-  return states, raw, (occ != 0).reshape(n, w * h).to(torch.uint8)
+  occ_pre = (occ != 0).reshape(n, -1).to(torch.uint8)
+  if not snapshots:
+    return states, raw, occ_pre
+  cols = [torch.stack(col) for col in zip(*snaps)]
+  packed = torch.cat([cols[0], torch.empty_like(cols[0][:1])])
+  return states, raw, occ_pre, GroupSnaps(packed, *cols[1:])
+
+
+# ---------------------------------------------------------------------------
+# The single tick (step.py:step_batch, _finish_tick).
+# ---------------------------------------------------------------------------
+
+
+def finish_tick(states: State, s_balance: torch.Tensor, cfg: EnvConfig,
+                balance: bool | None):
+  """Chunk balancing when asked, the touched-chunk update, reward and done
+  of a tick (``_finish_tick`` for a batch).  ``balance=None`` balances the
+  envs whose step is a multiple of ``cfg.balance_every``, by a select."""
+  from . import step_cuda
+  if balance is None or balance:
+    run = balance_plain if cfg.engine == 'plain' else step_cuda.balance
+    balanced = run(states, s_balance, None, cfg)
+    if balance is None:
+      due = states.step % cfg.balance_every == 0
+      pick = lambda new, old: torch.where(
+          due.reshape((-1,) + (1,) * (old.ndim - 1)), new, old)
+      ent = dataclasses.replace(
+          states.ent, etype=pick(balanced.ent.etype, states.ent.etype),
+          health=pick(balanced.ent.health, states.ent.health),
+          aux=pick(balanced.ent.aux, states.ent.aux))
+      balanced = dataclasses.replace(
+          states, ent=ent, chunk_touched=pick(balanced.chunk_touched,
+                                              states.chunk_touched))
+    states = balanced
+  # Chunks that hold an entity count as touched from now on (the
+  # reference's defaultdict keys, engine.py:36, :57, :78-79).
+  n = states.step.shape[0]
+  chunk, _, _ = _chunk_layout(cfg, str(states.mat_map.device))
+  ncx, ncy = cfg.n_chunks
+  held = torch.zeros((n, ncx * ncy), dtype=torch.int32,
+                     device=states.mat_map.device)
+  held.index_add_(1, chunk, (states.ent.etype > 0).to(torch.int32))
+  touched = states.chunk_touched | (held > 0).reshape(n, ncx, ncy)
+  reward, done, dead, unl, hp = _reward_done(
+      states.player.inventory, states.player.achievements, states.unlocked,
+      states.env_last_health, states.step, cfg)
+  states = dataclasses.replace(states, env_last_health=hp, unlocked=unl,
+                               chunk_touched=touched)
+  return states, StepOut(reward=reward, done=done, dead=dead, ended=done)
+
+
+def step_batch(states: State, actions: torch.Tensor, cfg: EnvConfig,
+               balance: bool | None = None):
+  """One simulation tick of every env (env.py:83-118): ``actions`` (N,).
+
+  ``balance``: None balances each env on its own cadence (every
+  ``cfg.balance_every``-th step of the env); True / False force the phase
+  on / off for this tick.  The tick itself is the tick kernel
+  (``cfg.engine == 'plain'``: its twin :func:`tick_plain`).  Returns
+  ``(states, out)`` with (N,) StepOut leaves.
+  """
+  from . import step_cuda
+  step_ = states.step + 1
+  s_player, s_mob, s_balance = tick_seeds(states.key, step_)
+  states = dataclasses.replace(states, step=step_)
+  run = tick_plain if cfg.engine == 'plain' else step_cuda.tick
+  states = run(states, actions, s_player, s_mob, cfg)
+  return finish_tick(states, s_balance, cfg, balance)
 
 
 # ---------------------------------------------------------------------------
@@ -732,11 +870,14 @@ def balance_core(M, T, Hp, A, occ, touched, light, px, py, seed,
   return T1, Hp1, A1, touched
 
 
-def balance_plain(states: State, seeds: torch.Tensor, occ_pre: torch.Tensor,
-                  cfg: EnvConfig) -> State:
-  """Group-end balance of a batch (``_balance_pallas``'s function):
-  ``seeds`` (N,) int32 balance seeds, ``occ_pre`` (N, C) occupancy OR."""
+def balance_plain(states: State, seeds: torch.Tensor,
+                  occ_pre: torch.Tensor | None, cfg: EnvConfig) -> State:
+  """Chunk balance of a batch (``_balance_pallas``'s function, and
+  ``_balance_apply``'s): ``seeds`` (N,) int32 balance seeds, ``occ_pre``
+  (N, C) occupancy OR of a group's earlier ticks, or None for none."""
   n = states.step.shape[0]
+  if occ_pre is None:
+    occ_pre = torch.zeros_like(states.ent.etype)
   ncx, ncy = cfg.n_chunks
   i32 = lambda v: v.to(torch.int32)
   light = state_lib.daylight(states.step, cfg.day_length)

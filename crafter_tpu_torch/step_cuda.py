@@ -1,13 +1,16 @@
-"""Wrappers of the group-tick and balance kernels (``csrc/group_tick.cu``,
-``csrc/balance.cu``).
+"""Wrappers of the group-tick, tick and balance kernels
+(``csrc/group_tick.cu``, ``csrc/balance.cu``).
 
-* :func:`group_tick` replaces ``crafter_tpu/step.py:step_group_batch``
-  (without render snapshots); plain twin ``step.step_group_plain``.
+* :func:`group_tick` replaces ``crafter_tpu/step.py:step_group_batch``,
+  render snapshots included; plain twin ``step.step_group_plain``.
+* :func:`tick` replaces ``crafter_tpu/step.py:_tick_pallas``; plain twin
+  ``step.tick_plain``.
 * :func:`balance` replaces ``crafter_tpu/step.py:_balance_pallas``; plain
   twin ``step.balance_plain``.
 
 For CUDA tensors each wrapper launches its kernel; for CPU tensors it runs
-the twin.  ``group_tick.launches`` / ``balance.launches`` count launches.
+the twin.  ``group_tick.launches`` / ``tick.launches`` /
+``balance.launches`` count launches.
 """
 
 from __future__ import annotations
@@ -75,33 +78,23 @@ def _contig(*ts):
   return [t.contiguous() for t in ts]
 
 
-def group_tick(states: State, actions: torch.Tensor, cfg: EnvConfig):
-  """K fused ticks; returns ``(states, raw, occ_pre)`` as
-  ``step.step_group_plain`` does."""
-  if not states.mat_map.is_cuda:
-    return step_lib.step_group_plain(states, actions, cfg)
-  out = _launch_group_tick(states, actions, cfg)
-  group_tick.launches += 1
-  return out
-
-
-group_tick.launches = 0
-
-
-def _launch_group_tick(states: State, actions: torch.Tensor, cfg: EnvConfig):
-  w, h = cfg.area
-  c = w * h
-  k, n = actions.shape
-  dev = states.mat_map.device
+def _record(states: State) -> torch.Tensor:
+  """The (N, REC) int32 per-env record the kernels read."""
+  n = states.step.shape[0]
   p = states.player
   k0, k1 = step_lib.key_words_i32(states.key)
   col = lambda v: v.to(torch.int32).reshape(n, 1)
-  rec_in = torch.cat(
+  return torch.cat(
       [col(p.facing), col(p.pos[:, 0]), col(p.pos[:, 1]), col(p.sleeping),
        col(p.hunger), col(p.thirst), col(p.fatigue), col(p.recover),
        col(p.last_health), col(states.step), col(states.env_last_health),
        col(k0), col(k1), p.inventory.to(torch.int32),
        p.achievements.to(torch.int32), states.unlocked.to(torch.int32)], 1)
+
+
+def _planes(states: State, cfg: EnvConfig):
+  """The five channel planes, checked and contiguous."""
+  n, c = states.step.shape[0], cfg.area[0] * cfg.area[1]
   planes = _contig(states.mat_map, states.ent.etype, states.ent.health,
                    states.ent.aux, states.ent.facing)
   for pl, dt in zip(planes, (torch.uint8, torch.uint8, torch.uint8,
@@ -109,20 +102,11 @@ def _launch_group_tick(states: State, actions: torch.Tensor, cfg: EnvConfig):
     if pl.dtype != dt or pl.shape != (n, c):
       raise TypeError(f'plane {pl.dtype} {tuple(pl.shape)}: want {dt} '
                       f'({n}, {c})')
-  acts = actions.to(torch.int32).contiguous()
-  outs = [torch.empty_like(pl) for pl in planes]
-  occ = torch.empty((n, c), dtype=torch.uint8, device=dev)
-  rec_out = torch.empty_like(rec_in)
-  reward = torch.empty((k, n), dtype=torch.float32, device=dev)
-  done = torch.empty((k, n), dtype=torch.bool, device=dev)
-  dead = torch.empty((k, n), dtype=torch.bool, device=dev)
-  lib = _build.library()
-  ptrs = [t.data_ptr() for t in (*planes, acts, rec_in, _rules_blob(str(dev)),
-                                 *outs, occ, rec_out, reward, done, dead)]
-  _build.check(lib.crafter_group_tick(
-      *ptrs, n, k, w, h, int(cfg.length or 0), cfg.update_distance,
-      _stream(acts)), 'group_tick')
+  return planes
 
+
+def _state_from(states: State, outs, rec_out: torch.Tensor, **fields) -> State:
+  """The state after a kernel: its output planes and record."""
   s = len(REC_SCALARS)
   ni, na = rules.N_ITEMS, rules.N_ACHIEVEMENTS
   r = lambda name: rec_out[:, REC_SCALARS.index(name)]
@@ -133,19 +117,111 @@ def _launch_group_tick(states: State, actions: torch.Tensor, cfg: EnvConfig):
       sleeping=r('sleeping') != 0, hunger=r('hunger'), thirst=r('thirst'),
       fatigue=r('fatigue'), recover=r('recover'),
       last_health=r('last_health'))
-  states = dataclasses.replace(
+  return dataclasses.replace(
       states, mat_map=outs[0],
       ent=EntMaps(etype=outs[1], health=outs[2], aux=outs[3],
                   facing=outs[4]),
-      player=player, step=r('step'), env_last_health=r('env_last_health'),
-      unlocked=rec_out[:, s + ni + na:] != 0)
+      player=player, **fields)
+
+
+def group_tick(states: State, actions: torch.Tensor, cfg: EnvConfig,
+               snapshots: bool = False):
+  """K fused ticks; returns ``(states, raw, occ_pre)``, and a
+  ``step.GroupSnaps`` after them with ``snapshots``, as
+  ``step.step_group_plain`` does."""
+  if not states.mat_map.is_cuda:
+    return step_lib.step_group_plain(states, actions, cfg, snapshots)
+  out = _launch_group_tick(states, actions, cfg, snapshots)
+  group_tick.launches += 1
+  return out
+
+
+group_tick.launches = 0
+
+
+def _launch_group_tick(states: State, actions: torch.Tensor, cfg: EnvConfig,
+                       snapshots: bool):
+  w, h = cfg.area
+  c = w * h
+  k, n = actions.shape
+  if snapshots and k < 2:
+    raise ValueError('snapshots need a group of at least 2 ticks')
+  dev = states.mat_map.device
+  rec_in = _record(states)
+  planes = _planes(states, cfg)
+  acts = actions.to(torch.int32).contiguous()
+  outs = [torch.empty_like(pl) for pl in planes]
+  occ = torch.empty((n, c), dtype=torch.uint8, device=dev)
+  rec_out = torch.empty_like(rec_in)
+  reward = torch.empty((k, n), dtype=torch.float32, device=dev)
+  done = torch.empty((k, n), dtype=torch.bool, device=dev)
+  dead = torch.empty((k, n), dtype=torch.bool, device=dev)
+  snaps = None
+  if snapshots:
+    col = lambda: torch.empty((k - 1, n), dtype=torch.int32, device=dev)
+    snaps = step_lib.GroupSnaps(
+        packed=torch.empty((k, n, c), dtype=torch.uint8, device=dev),
+        px=col(), py=col(), facing=col(), sleeping=col(),
+        inv=torch.empty((k - 1, n, rules.N_ITEMS), dtype=torch.int32,
+                        device=dev))
+  snap_ptrs = ([t.data_ptr() for _, t in state_lib.leaves(snaps)]
+               if snapshots else [None] * 6)
+  lib = _build.library()
+  ptrs = [t.data_ptr() for t in (*planes, acts, rec_in, _rules_blob(str(dev)),
+                                 *outs, occ, rec_out, reward, done, dead)]
+  _build.check(lib.crafter_group_tick(
+      *ptrs, *snap_ptrs, n, k, w, h, int(cfg.length or 0),
+      cfg.update_distance, _stream(acts)), 'group_tick')
+  r = lambda name: rec_out[:, REC_SCALARS.index(name)]
+  s = len(REC_SCALARS) + rules.N_ITEMS + rules.N_ACHIEVEMENTS
+  states = _state_from(states, outs, rec_out, step=r('step'),
+                       env_last_health=r('env_last_health'),
+                       unlocked=rec_out[:, s:] != 0)
   raw = step_lib.StepOut(reward=reward, done=done, dead=dead, ended=done)
+  if snapshots:
+    return states, raw, occ, snaps
   return states, raw, occ
 
 
-def balance(states: State, seeds: torch.Tensor, occ_pre: torch.Tensor,
-            cfg: EnvConfig) -> State:
-  """Group-end chunk balancing; as ``step.balance_plain``."""
+def tick(states: State, actions: torch.Tensor, s_player: torch.Tensor,
+         s_mob: torch.Tensor, cfg: EnvConfig) -> State:
+  """One tick of player phase + mob phase with the tick's seeds given; as
+  ``step.tick_plain``."""
+  if not states.mat_map.is_cuda:
+    return step_lib.tick_plain(states, actions, s_player, s_mob, cfg)
+  out = _launch_tick(states, actions, s_player, s_mob, cfg)
+  tick.launches += 1
+  return out
+
+
+tick.launches = 0
+
+
+def _launch_tick(states: State, actions, s_player, s_mob, cfg: EnvConfig):
+  w, h = cfg.area
+  n = states.step.shape[0]
+  dev = states.mat_map.device
+  cols = [v.to(torch.int32).contiguous() for v in (actions, s_player, s_mob)]
+  for v in cols:
+    if v.shape != (n,) or v.device != dev:
+      raise ValueError(f'per-env column {tuple(v.shape)} on {v.device}: '
+                       f'want ({n},) on {dev}')
+  rec_in = _record(states)
+  planes = _planes(states, cfg)
+  outs = [torch.empty_like(pl) for pl in planes]
+  rec_out = torch.empty_like(rec_in)
+  lib = _build.library()
+  ptrs = [t.data_ptr() for t in (*planes, *cols, rec_in,
+                                 _rules_blob(str(dev)), *outs, rec_out)]
+  _build.check(lib.crafter_tick(*ptrs, n, w, h, cfg.update_distance,
+                                _stream(rec_in)), 'tick')
+  return _state_from(states, outs, rec_out)
+
+
+def balance(states: State, seeds: torch.Tensor,
+            occ_pre: torch.Tensor | None, cfg: EnvConfig) -> State:
+  """Chunk balancing (``occ_pre`` None: no earlier occupancy to fold in);
+  as ``step.balance_plain``."""
   if not states.mat_map.is_cuda:
     return step_lib.balance_plain(states, seeds, occ_pre, cfg)
   out = _launch_balance(states, seeds, occ_pre, cfg)
@@ -157,8 +233,10 @@ balance.launches = 0
 
 
 def _launch_balance(states: State, seeds: torch.Tensor,
-                    occ_pre: torch.Tensor, cfg: EnvConfig) -> State:
+                    occ_pre: torch.Tensor | None, cfg: EnvConfig) -> State:
   w, h = cfg.area
+  if occ_pre is None:
+    occ_pre = torch.zeros_like(states.ent.etype)
   (csx, csy), (ncx, ncy) = cfg.chunk_size, cfg.n_chunks
   n = states.step.shape[0]
   dev = states.mat_map.device

@@ -79,3 +79,86 @@ def test_worldgen_on_card_equals_cpu(dev):
   keys = ct.prng.fold_in(ct.home_keys(4, 320, dev), 1)
   _assert_equal(worldgen.generate_world(keys, cfg),
                 worldgen.generate_world(keys.cpu(), cfg))
+
+
+def test_render_kernel_matches_plain_twin(dev):
+  """Both outputs of the render kernel on frames of every kind: steps over
+  a whole day (a share at night), a share sleeping, players at the edge."""
+  cfg = ct.EnvConfig()
+  n = 192
+  vs = ct.vec_reset(ct.home_keys(5, n, dev), cfg)
+  gen = torch.Generator(device=dev)
+  gen.manual_seed(3)
+  env = vs.env
+  rnd = lambda hi: torch.randint(0, hi, (n,), generator=gen, device=dev,
+                                 dtype=torch.int32)
+  pos = torch.stack([rnd(64), rnd(64)], 1)
+  pos[:8] = 0
+  env = dataclasses.replace(
+      env, step=rnd(300), player=dataclasses.replace(
+          env.player, pos=pos, sleeping=rnd(4) == 0, facing=rnd(4)))
+  atlas = ct.bake_atlas(cfg.size, cfg.view, cfg.item_rows, dev)
+  win = ct.window_prep(
+      ct.pack_cells(env.mat_map, env.ent.etype, env.ent.aux, env.ent.facing),
+      env.player.pos, env.player.facing, env.player.sleeping,
+      env.player.inventory, cfg)
+  light = ct.daylight(env.step, cfg.day_length)
+  seeds = ct.noise_seed(env.key, env.step)
+  assert (light < 0.5).any() and env.player.sleeping.any()
+  want = ct.render_win79_plain(win, light, env.player.sleeping, seeds, atlas)
+  before = ct.render_win79.launches
+  for fmt in ('packed', 'frames', 'words'):
+    got = ct.render_win79(win, light, env.player.sleeping, seeds, atlas,
+                          cfg.size, fmt)
+    assert torch.equal(got, ct.render.format_pixels(want, cfg.size, fmt)), fmt
+  assert ct.render_win79.launches == before + 3
+
+
+def test_snapshots_and_tick_kernel_match_plain_twins(dev):
+  cfg = ct.EnvConfig()
+  n = 96
+  vs = ct.vec_reset(ct.home_keys(6, n, dev), cfg)
+  gen = torch.Generator(device=dev)
+  gen.manual_seed(4)
+  for _ in range(3):
+    acts = torch.randint(0, 17, (10, n), generator=gen, device=dev)
+    got = step_cuda.group_tick(vs.env, acts, cfg, snapshots=True)
+    ref = step_lib.step_group_plain(vs.env, acts, cfg, snapshots=True)
+    for a, b in zip(got[:3], ref[:3]):
+      _assert_equal(a, b)
+    assert torch.equal(got[3].packed[:-1], ref[3].packed[:-1])
+    for name in ('px', 'py', 'facing', 'sleeping', 'inv'):
+      assert torch.equal(getattr(got[3], name), getattr(ref[3], name)), name
+    sp, sm, _ = step_lib.tick_seeds(vs.env.key, vs.env.step + 1)
+    _assert_equal(step_cuda.tick(vs.env, acts[0], sp, sm, cfg),
+                  step_lib.tick_plain(vs.env, acts[0], sp, sm, cfg))
+    vs, _ = ct.vec_step_group(vs, acts, cfg, 32)
+
+
+def test_pixel_and_per_tick_paths_on_card_equal_cpu(dev):
+  cfg = ct.EnvConfig(length=25)
+  ca, cb = ct.CrafterEnv(cfg, dev), ct.CrafterEnv(cfg, 'cpu')
+  va = ct.vec_reset(ct.home_keys(9, 13, dev), cfg)
+  vb = ct.vec_reset(ct.home_keys(9, 13, 'cpu'), cfg)
+  gen = torch.Generator(device=dev)
+  gen.manual_seed(5)
+  for _ in range(3):
+    acts = torch.randint(0, 17, (10, 13), generator=gen, device=dev)
+    va, oa, fa = ct.vec_step_group_obs(va, acts, cfg, 4, ca)
+    vb, ob, fb = ct.vec_step_group_obs(vb, acts.cpu(), cfg, 4, cb)
+    _assert_equal(va, vb)
+    _assert_equal(oa, ob)
+    assert torch.equal(fa.cpu(), fb)
+  ea = ct.VecEnv(13, cfg, seed=2, reset_batch=4, device=dev)
+  eb = ct.VecEnv(13, cfg, seed=2, reset_batch=4, device='cpu')
+  assert torch.equal(ea.reset().cpu(), eb.reset())
+  for _ in range(30):
+    acts = torch.randint(0, 17, (13,), generator=gen, device=dev)
+    ra, rb = ea.step(acts), eb.step(acts.cpu())
+    for x, y in zip(ra[:3], rb[:3]):
+      assert torch.equal(x.cpu(), y)
+    for name in ra[3]:
+      assert torch.equal(ra[3][name].cpu(), rb[3][name]), name
+  steps = torch.arange(0, 10001, dtype=torch.int32)
+  assert torch.equal(ct.daylight(steps.to(dev), 300).cpu(),
+                     ct.daylight(steps, 300))

@@ -86,3 +86,6 @@ def test_entry_points_default_to_cuda():
       'cuda'
   assert inspect.signature(ct.state_from_numpy).parameters[
       'device'].default == 'cuda'
+  for entry in (ct.CrafterEnv, ct.VecEnv, ct.bake_atlas):
+    assert inspect.signature(entry).parameters['device'].default == 'cuda', \
+        entry

@@ -1,5 +1,6 @@
 """The port stands alone: ``crafter_tpu_torch`` and ``chip_smoke.py`` import
-neither JAX (nor flax) nor the JAX package, checked both in a fresh
+neither JAX (nor flax) nor the JAX package nor an image library (PIL,
+imageio: the card's machine has none), checked both in a fresh
 interpreter (``sys.modules`` after importing every module) and by an AST
 scan of every import statement in their sources."""
 
@@ -13,7 +14,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / 'crafter_tpu_torch'
-FORBIDDEN = ('jax', 'jaxlib', 'flax', 'crafter_tpu')
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'crafter_tpu', 'PIL', 'imageio')
 
 
 def _sources():
@@ -58,3 +59,4 @@ def test_no_forbidden_modules_loaded():
   bad = [m for m in loaded if _forbidden(m)]
   assert not bad, bad
   assert 'crafter_tpu_torch.step_cuda' in loaded
+  assert 'crafter_tpu_torch.render_cuda' in loaded

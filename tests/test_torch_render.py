@@ -1,0 +1,292 @@
+"""The port's renderer against the JAX package's, module by module.
+
+* the committed data files (decoded textures, daylight table) against their
+  sources;
+* the baked atlas against the JAX ``bake_atlas`` for two render sizes (the
+  port's per-pixel source index against ``argmax`` of the one-hot ``expand``);
+* ``daylight`` for steps 0..10000 against the jitted JAX function;
+* ``noise_seed``, ``pack_cells``, ``window_prep`` against the JAX functions;
+* ``render_frames`` in its three output formats against the JAX
+  ``render_frames`` run as its Pallas kernel in interpret mode, on one batch
+  of hand-built scenes: day, night (steps spread over 148..272), sleeping,
+  a player at the map edge (gray tiles), arrows of every facing, ripe and
+  unripe plants, inventory amounts 0 and above 9;
+* frames picked because they tell the placement of each fused multiply-add
+  apart, against the jitted JAX ``_render_core``.
+
+Tolerance everywhere: none (every byte equal).
+"""
+
+import pathlib
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from crafter_tpu import render as jrender
+from crafter_tpu import state as jstate
+from crafter_tpu.config import EnvConfig as JaxConfig
+import crafter_tpu_torch as ct
+from crafter_tpu_torch import render as render_lib
+from crafter_tpu_torch import render_cuda, rules
+from crafter_tpu_torch import state as state_lib
+
+CFG = ct.EnvConfig()
+JCFG = JaxConfig()
+C = 64 * 64
+FORMATS = ('frames', 'packed', 'words')
+T = torch.from_numpy
+
+
+def test_textures_npz_equals_pngs():
+  import imageio.v3 as iio
+  tex = render_lib._textures()
+  pngs = sorted(jrender.ASSETS.glob('*.png'))
+  assert sorted(tex) == sorted(p.stem for p in pngs) and len(pngs) == 56
+  for p in pngs:
+    img = iio.imread(p.read_bytes())
+    img = img.transpose((1, 0) + tuple(range(2, img.ndim)))
+    assert tex[p.stem].dtype == np.uint8
+    np.testing.assert_array_equal(tex[p.stem], img, err_msg=p.stem)
+    np.testing.assert_array_equal(tex[p.stem], jrender._load(p.stem))
+
+
+def test_daylight_equals_jitted_jax():
+  steps = np.arange(0, 10001, dtype=np.int32)
+  ref = np.asarray(jax.jit(lambda s: jstate.daylight(s, 300))(steps))
+  ours = ct.daylight(T(steps), 300).numpy()
+  assert ours.dtype == np.float32
+  np.testing.assert_array_equal(ours, ref)
+  # Beyond the table and at another day length the computed form serves;
+  # it stays within float32 rounding of the reference.
+  far = np.arange(10001, 12000, dtype=np.int32)
+  np.testing.assert_allclose(
+      ct.daylight(T(far), 300).numpy(),
+      np.asarray(jax.jit(lambda s: jstate.daylight(s, 300))(far)), atol=1e-6)
+  np.testing.assert_allclose(
+      ct.daylight(T(steps), 250).numpy(),
+      np.asarray(jax.jit(lambda s: jstate.daylight(s, 250))(steps)),
+      atol=1e-6)
+
+
+@pytest.mark.parametrize('size', [(64, 64), (512, 512)], ids=str)
+def test_atlas_equals_jax(size):
+  ref = jrender.bake_atlas(size, JCFG.view, JCFG.item_rows)
+  ours = ct.bake_atlas(size, CFG.view, CFG.item_rows, 'cpu')
+  for name in ('mat_planes', 'spr_planes', 'vignette', 'view_mask'):
+    got = getattr(ours, name).numpy()
+    want = np.asarray(getattr(ref, name))
+    assert got.dtype == want.dtype and got.shape == want.shape, name
+    np.testing.assert_array_equal(got, want, err_msg=name)
+  expand = np.asarray(ref.expand)
+  assert set(np.unique(expand.sum(0))) <= {0, 1}
+  src = np.where(expand.any(0), expand.argmax(0), -1)
+  np.testing.assert_array_equal(ours.src.numpy(), src)
+
+
+def test_nearest_resize_equals_pil():
+  from PIL import Image
+  img = render_lib._load('player-down')
+  for size in [(1, 1), (3, 5), (5, 4), (7, 7), (16, 16), (33, 20), (56, 56)]:
+    want = np.array(Image.fromarray(img).resize(size[::-1],
+                                                resample=Image.NEAREST))
+    np.testing.assert_array_equal(render_lib._resize(img, size), want,
+                                  err_msg=str(size))
+
+
+def test_noise_seed_equals_jax():
+  rs = np.random.RandomState(0)
+  kd = rs.randint(0, 2 ** 32, size=(64, 2), dtype=np.uint64).astype(np.uint32)
+  steps = rs.randint(0, 20000, size=64).astype(np.int32)
+  want = jax.vmap(jrender._noise_seed)(jax.random.wrap_key_data(kd), steps)
+  got = ct.noise_seed(T(kd.astype(np.int64)), T(steps))
+  np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# --- one batch of hand-built scenes --------------------------------------
+
+
+class each(list):
+  """Marks a value of :func:`_scenes` that differs from row to row."""
+
+
+def _scenes():
+  """Field arrays of a batch of scenes and the frame rows of each case."""
+  rs = np.random.RandomState(5)
+  cases, rows = {}, []
+
+  def add(case, n, **kw):
+    cases[case] = list(range(len(rows), len(rows) + n))
+    for i in range(n):
+      row = dict(pos=(32, 32), step=0, sleeping=False, facing=rules.DIR_DOWN,
+                 ents=[], inv={})
+      row.update({k: (v[i] if isinstance(v, each) else v)
+                  for k, v in kw.items()})
+      rows.append(row)
+
+  add('day', 2, step=each([0, 120]),
+      ents=[(rules.E_COW, (31, 30), 0, 0), (rules.E_ZOMBIE, (34, 34), 0, 0),
+            (rules.E_SKELETON, (30, 33), 0, 0)])
+  add('night', 8, step=each([148, 166, 184, 202, 220, 238, 256, 272]),
+      ents=[(rules.E_ZOMBIE, (33, 31), 0, 0)])
+  add('sleeping', 2, sleeping=True, step=each([10, 215]))
+  add('edge', 4, pos=each([(0, 0), (63, 63), (0, 40), (62, 1)]),
+      step=each([0, 0, 0, 200]))
+  add('arrows', 4, facing=each([0, 1, 2, 3]),
+      ents=each([(rules.E_ARROW, (30, 32), 0, f)] for f in range(4)))
+  add('plants', 2, ents=each([[(rules.E_PLANT, (32, 31), 301, 0)],
+                              [(rules.E_PLANT, (32, 31), 10, 0)]]))
+  add('inventory', 2, inv=each([dict(wood=0, stone=12, sapling=9),
+                                dict(wood=3, coal=1, iron_pickaxe=1,
+                                     health=0)]))
+  b = len(rows)
+  f = dict(
+      mat_map=rs.randint(1, rules.N_MATERIALS, size=(b, C)).astype(np.uint8),
+      etype=np.zeros((b, C), np.uint8), aux=np.zeros((b, C), np.int16),
+      efacing=np.zeros((b, C), np.uint8),
+      pos=np.asarray([r['pos'] for r in rows], np.int32),
+      facing=np.asarray([r['facing'] for r in rows], np.int32),
+      sleeping=np.asarray([r['sleeping'] for r in rows]),
+      inventory=np.tile(np.asarray(rules.TABLES.item_initial, np.int32),
+                        (b, 1)),
+      step=np.asarray([r['step'] for r in rows], np.int32),
+      key=rs.randint(0, 2 ** 32, size=(b, 2), dtype=np.uint64).astype(
+          np.uint32))
+  for i, r in enumerate(rows):
+    x, y = r['pos']
+    f['etype'][i, x * 64 + y] = rules.E_PLAYER
+    for etype, (ex, ey), aux, fac in r['ents']:
+      c = ex * 64 + ey
+      f['etype'][i, c], f['aux'][i, c], f['efacing'][i, c] = etype, aux, fac
+    for name, amount in r['inv'].items():
+      f['inventory'][i, rules.ITEM_ID[name]] = amount
+  return f, cases
+
+
+@pytest.fixture(scope='module')
+def scenes():
+  """The scenes rendered by both packages in every output format."""
+  f, cases = _scenes()
+  atlas = jrender.bake_atlas(JCFG.size, JCFG.view, JCFG.item_rows)
+  key = jax.random.wrap_key_data(f['key'])
+  jpacked = jrender.pack_cells(f['mat_map'], f['etype'], f['aux'],
+                               f['efacing'])
+  jseeds = jax.vmap(jrender._noise_seed)(key, f['step'])
+  jwin = jax.jit(jax.vmap(lambda pk, pp, pf, sl, inv: jrender._window_prep(
+      pk, pp, pf, sl, inv, JCFG)))(jpacked, f['pos'], f['facing'],
+                                   f['sleeping'], f['inventory'])
+  ref = {
+      fmt: np.asarray(jax.jit(lambda *a, fmt=fmt: jrender.render_frames(
+          *a, JCFG, atlas, JCFG.size, out_format=fmt))(
+              jpacked, f['pos'], f['facing'],
+              f['sleeping'].astype(np.int32), f['inventory'], f['step'],
+              jseeds))
+      for fmt in FORMATS}
+  tatlas = ct.bake_atlas(CFG.size, CFG.view, CFG.item_rows, 'cpu')
+  packed = ct.pack_cells(T(f['mat_map']), T(f['etype']), T(f['aux']),
+                         T(f['efacing']))
+  seeds = ct.noise_seed(T(f['key'].astype(np.int64)), T(f['step']))
+  win = ct.window_prep(packed, T(f['pos']), T(f['facing']), T(f['sleeping']),
+                       T(f['inventory']), CFG)
+  ours = {
+      fmt: ct.render_frames(
+          packed, T(f['pos']), T(f['facing']), T(f['sleeping']),
+          T(f['inventory']), T(f['step']), seeds, CFG, tatlas, CFG.size,
+          out_format=fmt).numpy()
+      for fmt in FORMATS}
+  return dict(f=f, cases=cases, ref=ref, ours=ours, tatlas=tatlas,
+              packed=(packed.numpy(), np.asarray(jpacked)),
+              seeds=(seeds.numpy(), np.asarray(jseeds)),
+              win=(win.numpy(), np.asarray(jwin)))
+
+
+@pytest.mark.parametrize('what', ['packed', 'seeds', 'win'])
+def test_frame_inputs_equal_jax(scenes, what):
+  """``pack_cells``, ``noise_seed`` and ``window_prep`` on the scenes."""
+  ours, ref = scenes[what]
+  assert ours.dtype == ref.dtype and ours.shape == ref.shape
+  np.testing.assert_array_equal(ours, ref)
+  if what == 'win':
+    assert (ours[:, :63] & 15 == render_lib.GRAY_ID).any()   # edge tiles
+    assert ours[:, 63:].max() == 9 and ours[:, 63:].min() == 0
+
+
+@pytest.mark.parametrize('fmt', FORMATS)
+def test_render_frames_equal_jax(scenes, fmt):
+  ours, ref = scenes['ours'][fmt], scenes['ref'][fmt]
+  assert ours.dtype == ref.dtype and ours.shape == ref.shape
+  np.testing.assert_array_equal(ours, ref)
+
+
+@pytest.mark.parametrize('case', ['day', 'night', 'sleeping', 'edge',
+                                  'arrows', 'plants', 'inventory'])
+def test_scene_frames_equal_jax(scenes, case):
+  rows = scenes['cases'][case]
+  ours, ref = scenes['ours']['frames'][rows], scenes['ref']['frames'][rows]
+  np.testing.assert_array_equal(ours, ref)
+  # The case shows what it is meant to show.
+  if case == 'night':
+    light = ct.daylight(T(scenes['f']['step'][rows]), 300)
+    assert (light < 0.5).all()
+    assert (ours != scenes['ours']['frames'][0]).any()
+  elif case in ('arrows', 'plants', 'inventory'):
+    assert all((ours[0] != o).any() for o in ours[1:])
+  elif case == 'edge':
+    assert (ours[0][:7, :7] == ours[0][0, 0]).all()   # a flat gray tile
+
+
+def test_render_single_env_and_wrappers(scenes):
+  """One env without a leading axis, ``render_px_fields``, and the kernel
+  wrapper on CPU tensors (its plain twin) give the batch's frames."""
+  f, tatlas = scenes['f'], scenes['tatlas']
+  i = scenes['cases']['night'][3]
+  args = [torch.as_tensor(f[k][i]) for k in (
+      'mat_map', 'etype', 'aux', 'efacing', 'pos', 'facing')] + [
+      bool(f['sleeping'][i]), T(f['inventory'][i]), int(f['step'][i]),
+      T(f['key'][i].astype(np.int64))]
+  one = ct.render_fields(*args, CFG, tatlas, CFG.size)
+  np.testing.assert_array_equal(one.numpy(), scenes['ours']['frames'][i])
+  px = ct.render_px_fields(*args, CFG, tatlas)
+  np.testing.assert_array_equal(px.numpy(), scenes['ours']['packed'][i])
+  np.testing.assert_array_equal(ct.frame_image(px, CFG.size).numpy(),
+                                one.numpy())
+  win = T(scenes['win'][0])
+  light = ct.daylight(T(f['step']), 300)
+  got = render_cuda.render_win79(win, light, T(f['sleeping']),
+                                 T(scenes['seeds'][0]), tatlas, CFG.size,
+                                 'words')
+  np.testing.assert_array_equal(got.numpy(), scenes['ours']['words'])
+  assert render_cuda.render_win79.launches == 0   # no kernel on the CPU
+
+
+def test_fused_multiply_adds_placed_as_xla():
+  """Frames at which a wrong placement of a fused multiply-add in the night
+  blend shows: found by rendering 8192 random night frames with each
+  placement moved (noise scale-and-shift unfused; the other product of the
+  noise blend fused, or none).  Held against the jitted ``_render_core``."""
+  table = np.load(pathlib.Path(state_lib.ASSETS) / 'daylight.npz')['table']
+  picks = {101: [961, 113, 187, 298], 104: [219, 598, 121, 536]}
+  win, light, seeds = [], [], []
+  for seed, rows in picks.items():
+    rs = np.random.RandomState(seed)
+    mid = rs.randint(0, 14, size=(1024, 63))
+    tex = np.where(rs.rand(1024, 63) < 0.3,
+                   rs.randint(1, 15, size=(1024, 63)), 0)
+    w = np.concatenate([mid | (tex << 4), rs.randint(0, 10, size=(1024, 16))],
+                       1).astype(np.int32)
+    steps = rs.randint(160, 262, size=1024).astype(np.int32)
+    sd = rs.randint(-2 ** 31, 2 ** 31 - 1, size=1024).astype(np.int32)
+    win.append(w[rows])
+    light.append(table[steps][rows])
+    seeds.append(sd[rows])
+  win, light, seeds = map(np.concatenate, (win, light, seeds))
+  slp = np.zeros(len(win), np.int32)
+  a = jrender.bake_atlas(JCFG.size, JCFG.view, JCFG.item_rows)
+  ref = jax.jit(lambda w, d, s, sd: jrender._render_core(
+      w, d[:, None], s[:, None], sd[:, None], a.mat_planes, a.spr_planes,
+      a.expand, a.vignette, a.view_mask))(win, light, slp, seeds)
+  ours = ct.render_win79_plain(
+      T(win), T(light), T(slp), T(seeds),
+      ct.bake_atlas(CFG.size, CFG.view, CFG.item_rows, 'cpu'))
+  np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
