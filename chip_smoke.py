@@ -8,27 +8,38 @@ Run from the repository root on a machine with an NVIDIA H100:
 2. Holds each kernel against its plain PyTorch twin on the card, on the
    same inputs at main-path shapes: the group tick (without and with render
    snapshots), the tick and the balance at 4096 envs (states reached by
-   stepping fresh worlds), the noise on one reset pass of 320 worlds, the
+   stepping fresh worlds), the 2-D noise on one reset pass of 320 worlds, the
    render kernel on 40960 frames (one pixel group's) in both output formats,
    with a share of the frames at night, a share sleeping and some players at
-   the map's edge.  Integer outputs, rewards and frame bytes must be bitwise
-   equal; noise must be bitwise equal or within NOISE_ATOL with no material
-   of the 320 worlds flipped.
-3. Drives the three paths at 4096 envs, each with the launch counts set to
+   the map's edge, the 3-D noise on the 3-D form of that reset pass's points
+   (each channel's z as the third coordinate) and the roll micro-bench
+   kernel on (40960, 4096) int32 rows, all three kinds at 10 and 40 stages.
+   Integer outputs, rewards and frame bytes must be bitwise equal; noise
+   must be bitwise equal or within NOISE_ATOL (the count of differing
+   points is printed), with no material of the 320 worlds flipped.
+3. Drives the paths at 4096 envs, each with the launch counts set to
    0 just before and read just after, and prints env-steps/s (CUDA events):
    the state-only path (``vec_reset_chunked``, then groups of
    ``vec_step_group``, K = 10 ticks, ``reset_batch = 320``) and the pixel
    path (groups of ``vec_step_group_obs``, one frame per tick and env) in
-   two turns each, alternating, and the per-tick path (``VecEnv.reset`` and
-   ``step``).  Every env must have
-   stepped the full count or reset, every frame batch is read, and every
-   kernel of a path must have been launched on it.  The worlds of one reset
-   pass are made on the CPU too, and every leaf must equal the card's.
+   two turns each, alternating, the per-tick path (``VecEnv.reset`` and
+   ``step``), and the training path: ``PPO.init`` and three
+   ``train_step_with_stats`` (one warm-up, two timed) of the full NatureCNN
+   policy on 4096 envs x 64 ticks, 3 epochs of 8 minibatches.  Every env
+   must have stepped the full count or reset, every frame batch is read,
+   every kernel of a path must have been launched on it, and training must
+   count its updates and steps, keep every metric finite and change every
+   layer's parameters.  The two kernels that no entry point of the package
+   reaches are driven through what their users call: ``noise_cuda.noise3``
+   itself and ``tools/bench_roll_cuda.py``.  The worlds of one reset pass
+   are made on the CPU too, and every leaf must equal the card's.
 4. Runs the kernel path and the plain path on the card, and the CPU path,
    at 13 envs across episode ends and requires every leaf and frame equal:
    3 groups state-only, 3 groups of the pixel path, 30 ticks of ``VecEnv``
-   (card and CPU); and ``daylight`` on the card must equal the CPU's for
-   steps 0..10000.
+   (card and CPU); ``daylight`` on the card must equal the CPU's for
+   steps 0..10000; the policy's forward on the card must agree with the CPU's
+   within POLICY_ATOL; and a training state saved on the card, restored and
+   stepped must equal the one stepped without the round trip.
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line.  Any failed
@@ -36,8 +47,12 @@ phase raises, so the script exits non-zero and prints no result.
 """
 
 import json
+import math
+import os
+import runpy
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -51,6 +66,13 @@ PROFILE_GROUPS = 3         # groups under torch.profiler for the breakdown
 TWIN_CHUNK = 4096          # frames per call of the render kernel's twin
 TOP_OPS = 8
 NOISE_ATOL = 1e-6          # noise may differ from its twin by at most this
+ROLL_ROWS = 40960          # rows of the roll micro-bench (tools/bench_roll.py)
+# The training path: the sizes of tools/bench_ppo.py.
+PPO_ENVS, PPO_ROLLOUT, PPO_RESET = 4096, 64, 32
+PPO_EPOCHS, PPO_MINIBATCHES = 3, 8
+# bfloat16 keeps 8 bits of mantissa and the card and the CPU sum in another
+# order: logits and values of order 1 may differ by this much.
+POLICY_ATOL = 2e-2
 # H100 SXM peaks from NVIDIA's data sheet: memory rate, and the CUDA-core
 # float32 rate, which the bound also applies to integer operations (a lower
 # bound on their time: the int32 units are no faster).
@@ -74,6 +96,10 @@ OPS_TICK_ACTIVE = 180
 OPS_TICK_PLAYER = 300
 OPS_BALANCE_CELL = 4
 OPS_NOISE_POINT = 250
+# The 3-D noise: 26 candidates of ~24 float operations (offsets, squish,
+# attenuation, gradient dot, sum) and ~31 integer ones (hash, modulo,
+# gradient decode), and ~20 to find the base cell.
+OPS_NOISE3_POINT = 1450
 OPS_RENDER_TEXEL = 30
 OPS_RENDER_LIGHT = 75
 OPS_RENDER_NOISE = 25
@@ -91,6 +117,9 @@ def card_line():
 
 
 def main():
+  # cuBLAS needs this to run deterministically (the checkpoint check of
+  # phase 4 asks for deterministic algorithms); read when CUDA starts.
+  os.environ.setdefault('CUBLAS_WORKSPACE_CONFIG', ':4096:8')
   import torch
   if not torch.cuda.is_available():
     fail('torch.cuda.is_available() is false: this smoke test needs a GPU')
@@ -105,12 +134,12 @@ def main():
   from crafter_tpu_torch import env as env_lib
   from crafter_tpu_torch import render as render_lib
   from crafter_tpu_torch import render_cuda, worldgen
-  from crafter_tpu_torch.ops import noise, noise_cuda
+  from crafter_tpu_torch import checkpoint as ckpt_lib
+  from crafter_tpu_torch.ops import noise, noise_cuda, roll_cuda
   from crafter_tpu_torch.state import leaves
 
   dev = torch.device('cuda')
   card = card_line()
-  kind = torch.cuda.get_device_name(0)
   print(f'card: {card}', flush=True)
 
   # 1. Build.
@@ -124,15 +153,19 @@ def main():
       print(f'  {line.strip()}')
 
   def timed(fn, reps):
+    """``(result, ms)``: the median over ``reps`` calls after a warm-up, each
+    call between its own events, so that a stall of the host (which shares
+    its cores) between two calls is not counted as the kernel's time."""
     fn()
     torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
+    spans = []
     for _ in range(reps):
+      spans.append([torch.cuda.Event(enable_timing=True) for _ in range(2)])
+      spans[-1][0].record()
       out = fn()
-    end.record()
+      spans[-1][1].record()
     torch.cuda.synchronize()
-    return out, start.elapsed_time(end) / reps
+    return out, sorted(t0.elapsed_time(t1) for t0, t1 in spans)[reps // 2]
 
   def max_err(a, b, what):
     """Max |a - b| over matching leaves (dataclasses, dicts or tensors);
@@ -360,10 +393,82 @@ def main():
   del frames, lanes, win79, want, image, got_px, env, vs
   torch.cuda.empty_cache()
 
+  # The 3-D noise on the 3-D form of that reset pass's points: each
+  # channel's z (crafter_tpu/worldgen.py:44-58) as the third coordinate and
+  # the world's own seed at every point.
+  pts2, _ = worldgen.noise_inputs(keys, cfg)
+  zs = torch.tensor([ch[4] for ch in worldgen.CHANNELS], dtype=torch.float32,
+                    device=dev)
+  pts3 = torch.cat([pts2.reshape(RESET_BATCH, len(zs), c, 2),
+                    zs[None, :, None, None].expand(RESET_BATCH, -1, c, 1)],
+                   -1)
+  world_seed = ct.prng.randint(ct.prng.split(keys, 3)[:, 0], 0, 2 ** 31 - 1)
+  seeds3 = world_seed[:, None, None].expand(pts3.shape[:-1]).contiguous()
+  nz, ms = timed(lambda: noise_cuda.noise3(pts3, seeds3), 10)
+  nref, plain_ms = timed(lambda: noise.noise3_fast(pts3, seeds3), 2)
+  err = (nz - nref).abs().max().item()
+  ndiff = int((nz != nref).sum())
+  one_seed = int(world_seed[0])
+  same = torch.equal(noise_cuda.noise3(pts3[0], one_seed),
+                     noise.noise3_fast(pts3[0], one_seed))
+  print(f'noise3: {ndiff} of {nz.numel()} values differ, max |diff| {err}, '
+        f'field in [{float(nz.min()):.3f}, {float(nz.max()):.3f}]; one seed '
+        f'for all points {"equal" if same else "differs"}', flush=True)
+  if err > NOISE_ATOL or not same or float(nz.abs().max()) < 0.5:
+    fail('noise3 disagrees with noise3_fast')
+  p3 = nz.numel()
+  rows.append(dict(
+      name='noise3', source='crafter_tpu_torch/csrc/noise3.cu',
+      replaces='crafter_tpu/ops/noise_pallas.py:134', max_abs_err=err, ms=ms,
+      plain_ms=plain_ms, bytes=p3 * (12 + 4 + 4), ops=p3 * OPS_NOISE3_POINT,
+      library_ms=None))
+  del pts2, pts3, seeds3, nz, nref, keys
+
+  # The roll micro-bench kernel on its rows, all three kinds at 10 and 40
+  # stages; the twin in row chunks.  The table's row is 'roll' at 10 stages;
+  # one torch.roll of the rows (one stage's rotate) is its library time.
+  x = torch.randint(0, 1 << 24, (ROLL_ROWS, roll_cuda.COLS), generator=gen,
+                    device=dev, dtype=torch.int32)
+  roll_ms = {}
+  for roll_kind in roll_cuda.KINDS:
+    for stages in (10, 40):
+      got_x, ms = timed(lambda: roll_cuda.roll_stages(x, roll_kind, stages), 3)
+      bad, spans = 0, []
+      for i in range(0, ROLL_ROWS, TWIN_CHUNK):
+        spans.append([torch.cuda.Event(enable_timing=True) for _ in range(2)])
+        spans[-1][0].record()
+        want_x = roll_cuda.roll_stages_plain(x[i:i + TWIN_CHUNK], roll_kind,
+                                           stages)
+        spans[-1][1].record()
+        bad += int((got_x[i:i + TWIN_CHUNK] != want_x).sum())
+      torch.cuda.synchronize()
+      plain_ms = sum(t0.elapsed_time(t1) for t0, t1 in spans)
+      roll_ms[roll_kind, stages] = (ms, plain_ms)
+      print(f'roll: {roll_kind:5} x{stages:2}: {ms:.3f} ms '
+            f'({ms * 1e3 / stages:.2f} us/stage), plain {plain_ms:.3f} ms, '
+            f'{bad} values differ', flush=True)
+      if bad or torch.equal(got_x, x):
+        fail(f'roll_stages({roll_kind}, {stages}) disagrees with its plain '
+             'twin')
+  _, lib_ms = timed(lambda: torch.roll(x, -1, dims=1), 3)
+  stage_us = lambda name: (roll_ms[name, 40][0] - roll_ms[name, 10][0]) \
+      / 30 * 1e3
+  print(f'roll: one torch.roll of the rows {lib_ms:.3f} ms; a roll stage '
+        f'costs {stage_us("roll"):.2f} us, a control stage '
+        f'{stage_us("ctl"):.2f} us (from 10 to 40 stages)', flush=True)
+  rows.append(dict(
+      name='roll', source='crafter_tpu_torch/csrc/roll.cu',
+      replaces='tools/bench_roll.py:23', max_abs_err=0.0,
+      ms=roll_ms['roll', 10][0], plain_ms=roll_ms['roll', 10][1],
+      bytes=2 * x.numel() * 4, ops=10 * x.numel(), library_ms=lib_ms))
+  del x, got_x, want_x
+  torch.cuda.empty_cache()
+
   # 3. The paths, counted and timed.
   wrappers = {'group_tick': step_cuda.group_tick, 'tick': step_cuda.tick,
               'balance': step_cuda.balance, 'noise2': noise_cuda.noise2,
-              'render_win79': render_cuda.render_win79}
+              'render_win79': render_cuda.render_win79,
+              'noise3': noise_cuda.noise3, 'roll': roll_cuda.roll_stages}
 
   def zero_counts():
     for fn in wrappers.values():
@@ -553,6 +658,103 @@ def main():
   del venv, obs, vs0, info
   torch.cuda.empty_cache()
 
+  # 3d. The training path at full width: PPO on 4096 envs, a rollout of 64
+  # ticks (the per-tick cadence: 64 is no multiple of K), 3 epochs of 8
+  # minibatches of 32768 frames through the full NatureCNN.
+  zero_counts()
+  env_cfg = ct.EnvConfig()
+  ppo = ct.PPO(env_cfg, ct.PPOConfig(
+      num_envs=PPO_ENVS, rollout_len=PPO_ROLLOUT, epochs=PPO_EPOCHS,
+      minibatches=PPO_MINIBATCHES, reset_batch=PPO_RESET), device=dev)
+  torch.cuda.reset_peak_memory_stats()
+  ts = ppo.init(ct.prng.key(0, dev))
+  params0 = {name: q.detach().clone()
+             for name, q in ts.params.named_parameters()}
+  # The split of an update: an event where the rollout hands over to the
+  # learner.
+  marks = []
+  inner_learn = ppo._learn
+
+  def marked_learn(*args):
+    marks.append(torch.cuda.Event(enable_timing=True))
+    marks[-1].record()
+    return inner_learn(*args)
+
+  ppo._learn = marked_learn
+  ts, metrics, stats = ppo.train_step_with_stats(ts)              # warm-up
+  update_ms, rollout_ms = [], []
+  for _ in range(2):
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    ts, metrics, stats = ppo.train_step_with_stats(ts)
+    end.record()
+    torch.cuda.synchronize()
+    update_ms.append(start.elapsed_time(end))
+    rollout_ms.append(start.elapsed_time(marks[-1]))
+    ended = int(metrics['episodes_done'])
+    if int(stats['count']) + int(stats['dropped']) != ended:
+      fail(f'training path: stats count {int(stats["count"])} + dropped '
+           f'{int(stats["dropped"])} != {ended} episodes ended')
+  ppo_counts = read_counts('training',
+                           ('tick', 'balance', 'noise2', 'render_win79'))
+  steps_per_update = PPO_ENVS * PPO_ROLLOUT
+  if ts.update != 3 or ts.env_steps != 3 * steps_per_update:
+    fail(f'training path: update {ts.update}, env_steps {ts.env_steps}')
+  values = {name: float(v) for name, v in metrics.items()}
+  if not all(math.isfinite(v) for v in values.values()):
+    fail(f'training path: metrics {values}')
+  if not 0 < values['entropy'] <= math.log(ct.rules.N_ACTIONS) + 1e-6:
+    fail(f'training path: entropy {values["entropy"]}')
+  for layer in ('conv1', 'conv2', 'conv3', 'dense', 'logits', 'value'):
+    if not any(not torch.equal(q.detach(), params0[name])
+               for name, q in ts.params.named_parameters()
+               if name.startswith(layer + '.')):
+      fail(f'training path: no parameter of {layer} changed')
+  if ts.obs.shape != (PPO_ENVS, env_cfg.size[1], env_cfg.size[0], 3) \
+      or int(ts.vec.tick) != 3 * PPO_ROLLOUT:
+    fail(f'training path: obs {tuple(ts.obs.shape)}, tick {int(ts.vec.tick)}')
+  ppo_sps = 2 * steps_per_update / (sum(update_ms) / 1e3)
+  ppo_ms = sum(update_ms) / 2
+  ppo_rollout_ms = sum(rollout_ms) / 2
+  print(f'training path on {card}: {PPO_ENVS} envs x {PPO_ROLLOUT} ticks, '
+        f'{PPO_EPOCHS} epochs x {PPO_MINIBATCHES} minibatches: updates '
+        f'{update_ms[0]:.1f} / {update_ms[1]:.1f} ms = {ppo_sps:,.0f} '
+        f'env-steps/s; rollout {ppo_rollout_ms:.1f} ms '
+        f'({ppo_rollout_ms / PPO_ROLLOUT:.2f} ms/tick), learn '
+        f'{ppo_ms - ppo_rollout_ms:.1f} ms; metrics {values}; peak memory '
+        f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches '
+        f'{ppo_counts}', flush=True)
+  box = [ts]
+
+  def one_update():
+    box[0], _ = ppo.train_step(box[0])
+
+  profile(one_update, 1, 'update', 'training')
+  ppo._learn = inner_learn
+  trained = box[0].params                 # phase 4 compares it with the CPU
+  trained_obs = box[0].obs[:256].clone()
+  del box, ts, stats, metrics, params0, ppo
+  torch.cuda.empty_cache()
+
+  # 3e. The two kernels that no entry point of the package reaches, through
+  # what their users call: the noise3 wrapper itself, on one world's 3-D
+  # points, and the roll micro-bench tool.
+  zero_counts()
+  pts2, _ = worldgen.noise_inputs(ct.home_keys(5, 1, dev), cfg)
+  field = noise_cuda.noise3(
+      torch.cat([pts2, zs[:, None].expand(-1, c).reshape(-1, 1)], -1), 5)
+  if not (torch.isfinite(field).all() and float(field.abs().max()) > 0.5):
+    fail('noise3: the field is not finite or is flat')
+  argv = sys.argv
+  sys.argv = [argv[0]]
+  try:
+    runpy.run_path(str(root / 'tools' / 'bench_roll_cuda.py'),
+                   run_name='__main__')
+  finally:
+    sys.argv = argv
+  tool_counts = read_counts('noise3 and roll tool', ('noise3', 'roll'))
+  del pts2, field
+
   # 4. Kernel path == plain path on the card == the CPU, across episode
   # ends, at 13 envs: state-only groups, pixel groups, VecEnv ticks.
   small = dataclasses.replace(cfg, length=25)
@@ -612,16 +814,68 @@ def main():
     fail('daylight on the card differs from the CPU\'s')
   print('daylight: card == CPU for steps 0..10000', flush=True)
 
+  # The trained policy on the card against the CPU, from the same
+  # parameters and frames (bfloat16 trunk on both).
+  cpu_policy = ct.CnnPolicy(device='cpu')
+  cpu_policy.load_state_dict(trained.state_dict())
+  with torch.no_grad():
+    on_card, on_cpu = trained(trained_obs), cpu_policy(trained_obs.cpu())
+  policy_err = max(float((a.cpu() - b).abs().max())
+                   for a, b in zip(on_card, on_cpu))
+  print(f'policy forward, 256 frames: card vs CPU max |diff| {policy_err:.5f} '
+        f'(logits up to {float(on_cpu.logits.abs().max()):.3f})', flush=True)
+  if not policy_err <= POLICY_ATOL:
+    fail('the policy on the card disagrees with the CPU')
+
+  # A checkpoint written on the card, restored into a fresh state, and one
+  # more update from it: equal to the update taken without the round trip.
+  # Deterministic algorithms, so that cuDNN's backward allows equality; the
+  # grouped cadence (a rollout of K ticks), and an episode cap that ends
+  # every episode inside the update after the checkpoint.
+  torch.use_deterministic_algorithms(True, warn_only=True)
+  tiny = ct.PPO(ct.EnvConfig(length=15), ct.PPOConfig(
+      num_envs=64, rollout_len=k, epochs=2, minibatches=2, reset_batch=8),
+      device=dev)
+  ts, _ = tiny.train_step(tiny.init(ct.prng.key(1, dev)))
+  with tempfile.TemporaryDirectory() as tmp:
+    ck = ckpt_lib.Checkpointer(tmp)
+    ck.save(ts.update, ts)
+    ts_a, metrics_a = tiny.train_step(ts)
+    want_params = {name: q.detach().clone()
+                   for name, q in ts_a.params.named_parameters()}
+    restored = ck.restore_latest(tiny.init(ct.prng.key(2, dev)))
+  if restored.update != 1 or int(restored.vec.tick) != k:
+    fail(f'checkpoint: restored update {restored.update}, tick '
+         f'{int(restored.vec.tick)}')
+  ts_b, metrics_b = tiny.train_step(restored)
+  torch.use_deterministic_algorithms(False)
+  got_params = dict(ts_b.params.named_parameters())
+  ck_err = max(float((got_params[name].detach() - q).abs().max())
+               for name, q in want_params.items())
+  if (ck_err != 0 or max_err(ts_a.vec, ts_b.vec, 'checkpoint env')
+      or not torch.equal(ts_a.obs, ts_b.obs)
+      or not torch.equal(ts_a.key, ts_b.key)
+      or float(metrics_a['loss']) != float(metrics_b['loss'])):
+    fail(f'checkpoint: the update after the round trip differs (parameters '
+         f'by {ck_err})')
+  print(f'checkpoint on the card: 64 envs, saved after update 1, restored, '
+        f'update 2 == update 2 without the round trip '
+        f'({int(ts_b.vec.episode.sum()) - 64} episodes begun since)',
+        flush=True)
+  if int(ts_b.vec.episode.sum()) == 64:
+    fail('checkpoint: no episode ended after the round trip')
+
   launches = {
       'group_tick': state_counts['group_tick'],
       'group_tick_snaps': pixel_counts['group_tick'],
-      'tick': tick_counts['tick'],
+      'tick': tick_counts['tick'] + ppo_counts['tick'],
       'balance': sum(cn['balance'] for cn in (state_counts, pixel_counts,
-                                              tick_counts)),
+                                              tick_counts, ppo_counts)),
       'noise2': sum(cn['noise2'] for cn in (state_counts, pixel_counts,
-                                            tick_counts)),
+                                            tick_counts, ppo_counts)),
       'render_win79': pixel_counts['render_win79']
-      + tick_counts['render_win79']}
+      + tick_counts['render_win79'] + ppo_counts['render_win79'],
+      'noise3': tool_counts['noise3'], 'roll': tool_counts['roll']}
   kernels = []
   for row in rows:
     bound_bytes = row.pop('bytes') / HBM_BYTES_PER_S * 1e3
@@ -638,12 +892,16 @@ def main():
   print(json.dumps({
       'kernels': kernels, 'card': card,
       'env_steps_per_s': {'state_only': sps, 'pixel': pixel_sps,
-                          'per_tick': tick_sps},
+                          'per_tick': tick_sps, 'training': ppo_sps},
+      'training_ms': {'update': ppo_ms, 'rollout': ppo_rollout_ms,
+                      'learn': ppo_ms - ppo_rollout_ms},
       'launches_by_path': {'state_only': state_counts, 'pixel': pixel_counts,
-                           'per_tick': tick_counts}}))
+                           'per_tick': tick_counts, 'training': ppo_counts,
+                           'noise3_and_roll_tool': tool_counts}}))
   print(card)
   print(json.dumps({'ok': True, 'device': {
-      'platform': 'gpu', 'kind': kind, 'count': torch.cuda.device_count()}}))
+      'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+      'count': torch.cuda.device_count()}}))
 
 
 if __name__ == '__main__':

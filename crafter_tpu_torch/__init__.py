@@ -9,7 +9,11 @@ balance-cadence groups (``vec_step_group`` state only,
 ``VecEnv``), with the group tick, the tick, the balance, the render and the
 worldgen noise as CUDA kernels (``step_cuda.py``, ``render_cuda.py``,
 ``ops/noise_cuda.py``, sources in ``csrc/``) and plain PyTorch twins beside
-them.  Entry points run on ``cuda`` unless given ``device='cpu'``.
+them; and training on top of the per-tick path: ``PPO`` / ``PPOConfig``
+(``ppo.py``) with the ``CnnPolicy`` (``models/cnn.py``), ``checkpoint.py``,
+``recorder.py`` / ``analysis.py`` and the CLI ``python -m
+crafter_tpu_torch.run_train``.  Entry points run on ``cuda`` unless given
+``device='cpu'``.
 """
 
 from . import prng, render, rules
@@ -18,6 +22,8 @@ from .convert import state_from_numpy, to_numpy
 from .env import (CrafterEnv, VecEnv, VecState, home_keys, vec_reset,
                   vec_reset_chunked, vec_step, vec_step_group,
                   vec_step_group_obs, vec_step_k)
+from .models import CnnPolicy, PolicyOutput
+from .ppo import PPO, PPOConfig, PPOState, Transition
 from .render import (Atlas, bake_atlas, frame_image, noise_seed, pack_cells,
                      render_fields, render_frames, render_px_fields,
                      render_win79_plain, window_prep)
@@ -29,8 +35,9 @@ from .step_cuda import balance, group_tick, tick
 from .worldgen import generate_world
 
 __all__ = [
-    'Atlas', 'CrafterEnv', 'DEFAULT_CONFIG', 'EntMaps', 'EnvConfig',
-    'GroupSnaps', 'Player', 'State', 'StepOut', 'VecEnv', 'VecState',
+    'Atlas', 'CnnPolicy', 'CrafterEnv', 'DEFAULT_CONFIG', 'EntMaps',
+    'EnvConfig', 'GroupSnaps', 'PPO', 'PPOConfig', 'PPOState', 'Player',
+    'PolicyOutput', 'State', 'StepOut', 'Transition', 'VecEnv', 'VecState',
     'bake_atlas', 'balance', 'balance_plain', 'daylight', 'finish_tick',
     'frame_image', 'generate_world', 'group_tick', 'home_keys', 'noise_seed',
     'pack_cells', 'prng', 'render', 'render_fields', 'render_frames',

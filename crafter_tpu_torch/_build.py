@@ -21,7 +21,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_ROOT = Path(__file__).resolve().parent.parent / 'build'
-SOURCES = ('noise2.cu', 'group_tick.cu', 'balance.cu', 'render.cu')
+SOURCES = ('noise2.cu', 'noise3.cu', 'roll.cu', 'group_tick.cu', 'balance.cu',
+           'render.cu')
 FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
          # No implicit multiply-add contraction: the kernels place every
          # fused multiply-add explicitly, to match their plain twins.
@@ -103,6 +104,8 @@ def library() -> ctypes.CDLL:
     vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_float)
     lib.crafter_noise2.argtypes = [vp, vp, vp, i64, f32, f32, f32, vp]
+    lib.crafter_noise3.argtypes = [vp, vp, i32, vp, i64, f32, f32, f32, vp]
+    lib.crafter_roll.argtypes = [vp, vp, i64, i32, i32, vp]
     lib.crafter_group_tick.argtypes = [vp] * 24 + [i32] * 6 + [vp]
     lib.crafter_tick.argtypes = [vp] * 16 + [i32] * 4 + [vp]
     lib.crafter_render.argtypes = ([vp] * 5 + [i32, vp, i32] + [vp] * 4
@@ -110,8 +113,9 @@ def library() -> ctypes.CDLL:
     lib.crafter_balance.argtypes = [vp] * 14 + [i32] * 7 + [vp]
     lib.crafter_error_string.argtypes = [i32]
     lib.crafter_error_string.restype = ctypes.c_char_p
-    for fn in ('crafter_noise2', 'crafter_group_tick', 'crafter_tick',
-               'crafter_balance', 'crafter_render'):
+    for fn in ('crafter_noise2', 'crafter_noise3', 'crafter_roll',
+               'crafter_group_tick', 'crafter_tick', 'crafter_balance',
+               'crafter_render'):
       getattr(lib, fn).restype = i32
     _lib = lib
   return _lib

@@ -3,8 +3,10 @@
 ``state_from_numpy`` takes the JAX package's ``VecState`` (or ``State``)
 after its leaves were turned into numpy arrays, with every PRNG key as its
 ``(N, 2)`` uint32 key data.  It reads fields by name, from attributes or
-mapping keys, so it needs none of the JAX package's types.  The port never
-sees a JAX array.
+mapping keys, so it needs none of the JAX package's types.
+``policy_from_flax`` turns the flax parameter tree of the JAX package's
+``CnnPolicy``, as numpy arrays, into the port's ``state_dict``.  The port
+never sees a JAX array.
 """
 
 from __future__ import annotations
@@ -68,3 +70,27 @@ def to_numpy(obj):
       out[f.name] = v
     return out
   return obj.detach().cpu().numpy()
+
+
+def policy_from_flax(params) -> dict:
+  """The ``state_dict`` of :class:`crafter_tpu_torch.models.CnnPolicy` from
+  the flax parameters of the JAX package's ``CnnPolicy`` as (nested dicts
+  of) numpy arrays, with or without the outer ``'params'`` level.
+
+  Convolution kernels go from HWIO to OIHW and dense kernels from
+  ``(in, out)`` to ``(out, in)``.  The dense layer's input rows stay in
+  flax's (H, W, C) order: the port's policy flattens its activations in
+  that order too.
+  """
+  tree = params['params'] if 'params' in params else params
+  names = {'conv1': 'Conv_0', 'conv2': 'Conv_1', 'conv3': 'Conv_2',
+           'dense': 'Dense_0', 'logits': 'Dense_1', 'value': 'Dense_2'}
+  out = {}
+  for ours, theirs in names.items():
+    kernel = np.asarray(tree[theirs]['kernel'], np.float32)
+    axes = (3, 2, 0, 1) if kernel.ndim == 4 else (1, 0)
+    out[f'{ours}.weight'] = torch.from_numpy(
+        np.array(kernel.transpose(axes), order='C'))
+    out[f'{ours}.bias'] = torch.from_numpy(
+        np.array(tree[theirs]['bias'], np.float32))
+  return out

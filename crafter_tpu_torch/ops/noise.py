@@ -1,14 +1,19 @@
-"""2-D OpenSimplex-structured gradient noise — the plain PyTorch version.
+"""OpenSimplex-structured gradient noise, 2-D and 3-D — the plain PyTorch
+versions.
 
-The port's counterpart of ``crafter_tpu/ops/noise.py:noise2_fast``, and the
-plain twin of the CUDA kernel in ``ops/noise_cuda.py``.  Same lattice,
-candidate set, attenuation, arithmetic gradient hash and normalisation, op
-for op in float32, so it reproduces the JAX function bit for bit:
+The port's counterparts of ``crafter_tpu/ops/noise.py:noise2_fast`` and
+``noise3_fast``, and the plain twins of the CUDA kernels in
+``ops/noise_cuda.py``.  Same lattice, candidate sets, attenuation, arithmetic
+gradient hash and normalisation, op for op in float32, so they reproduce the
+jitted JAX functions bit for bit:
 
 * the fused multiply-adds sit where XLA's CPU backend contracts them
   (``ops/fma.py``), every other float op rounds on its own;
 * the division by the normaliser is a multiply by its float32 reciprocal,
   which is what XLA makes of a division by a constant.
+
+Where the fusions of the 3-D sum sit was read off XLA's optimised code for
+``jax.jit(noise3_fast)`` (see :func:`noise3_fast`).
 """
 
 from __future__ import annotations
@@ -70,3 +75,88 @@ def noise2_fast(points: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
     grad = fma32(gx.to(torch.float32), dx, gy * dy)
     total = fma32(attn2 * attn2, grad, total)
   return (total * F32_INV_NORM).reshape(shape)
+
+
+STRETCH_3D = -1.0 / 6.0
+SQUISH_3D = 1.0 / 3.0
+NORM_3D = 103.0
+# All lattice offsets relative to floor(stretched point) that can have
+# positive attenuation (exhaustive sweep in tests/test_noise.py).
+CANDIDATES = np.array([
+    (-1, 0, 1), (-1, 1, 0), (-1, 1, 1),
+    (0, -1, 1), (0, 0, 0), (0, 0, 1), (0, 0, 2), (0, 1, -1), (0, 1, 0),
+    (0, 1, 1), (0, 1, 2), (0, 2, 0), (0, 2, 1),
+    (1, -1, 0), (1, -1, 1), (1, 0, -1), (1, 0, 0), (1, 0, 1), (1, 0, 2),
+    (1, 1, -1), (1, 1, 0), (1, 1, 1), (1, 2, 0),
+    (2, 0, 0), (2, 0, 1), (2, 1, 0),
+], np.int32)  # (26, 3)
+
+F32_STRETCH_3D = float(np.float32(STRETCH_3D))
+F32_SQUISH_3D = float(np.float32(SQUISH_3D))
+F32_INV_NORM_3D = float(np.float32(1.0) / np.float32(NORM_3D))
+H_Z = -888626401
+# Candidates whose ``dz * dz`` XLA computes once for several of them: those
+# whose x and y offsets cancel share their dz with every other such
+# candidate of the same z offset.  A product with several uses is not
+# fused into the subtraction that consumes it.
+_cancel = [(c[0] + c[1] == 0, c[2]) for c in CANDIDATES.tolist()]
+DZ2_SHARED = tuple(cancels and _cancel.count((True, cz)) > 1
+                   for cancels, cz in _cancel)
+
+
+def noise3_fast(points: torch.Tensor, seed) -> torch.Tensor:
+  """Noise at ``points`` (..., 3) float32 with an int32 ``seed``, a scalar or
+  broadcastable against the leading point dims.  Returns (...) float32.
+
+  The fused multiply-adds are those of XLA's compiled code for the jitted
+  JAX function: every square of the attenuation is fused into its
+  subtraction, except ``dz * dz`` of the six candidates of ``DZ2_SHARED``
+  (XLA shares that product between them, and a product with several uses
+  rounds alone); the gradient dot product is
+  ``fma(gz, dz, fma(gx, dx, gy * dy))``; the sum over the candidates starts
+  as ``fma(t0, g0, t1 * g1)`` and takes every later term as
+  ``fma(tk, gk, sum)``.
+  """
+  pts = points.to(torch.float32)
+  shape = pts.shape[:-1]
+  seed = torch.as_tensor(seed, dtype=torch.int32,
+                         device=pts.device).broadcast_to(shape).reshape(-1)
+  pts = pts.reshape(-1, 3)
+  px, py, pz = pts[:, 0], pts[:, 1], pts[:, 2]
+  stretch = ((px + py) + pz) * F32_STRETCH_3D
+  xb = torch.floor(px + stretch + NUDGE).to(torch.int32)
+  yb = torch.floor(py + stretch + NUDGE).to(torch.int32)
+  zb = torch.floor(pz + stretch + NUDGE).to(torch.int32)
+
+  total = first = None
+  for (cx, cy, cz), shared in zip(CANDIDATES.tolist(), DZ2_SHARED):
+    vx, vy, vz = xb + cx, yb + cy, zb + cz
+    squish = (vx + vy + vz).to(torch.float32) * F32_SQUISH_3D
+    dx = px - (vx.to(torch.float32) + squish)
+    dy = py - (vy.to(torch.float32) + squish)
+    dz = pz - (vz.to(torch.float32) + squish)
+    attn = fma32(-dy, dy, fma32(-dx, dx, 2.0))
+    attn = attn - dz * dz if shared else fma32(-dz, dz, attn)
+    attn = torch.clamp_min(attn, 0.0)
+    attn2 = attn * attn
+    h = (vx * H_X) ^ (vy * H_Y) ^ (vz * H_Z) ^ seed
+    h = h * H_MIX
+    h = h ^ (h >> 15)                       # arithmetic shift, as in JAX
+    h = (h & 0x7FFFFFFF) % 24
+    # The 24 gradients are (+-11, +-4, +-4) with the 11 on `axis`.
+    axis = h // 8
+    s0 = 1 - 2 * (h & 1)
+    s1 = 1 - 2 * ((h >> 1) & 1)
+    s2 = 1 - 2 * ((h >> 2) & 1)
+    gx = (torch.where(axis == 0, 11, 4) * s0).to(torch.float32)
+    gy = (torch.where(axis == 1, 11, 4) * s1).to(torch.float32)
+    gz = (torch.where(axis == 2, 11, 4) * s2).to(torch.float32)
+    grad = fma32(gz, dz, fma32(gx, dx, gy * dy))
+    weight = attn2 * attn2
+    if first is None:
+      first = (weight, grad)
+    elif total is None:
+      total = fma32(first[0], first[1], weight * grad)
+    else:
+      total = fma32(weight, grad, total)
+  return (total * F32_INV_NORM_3D).reshape(shape)

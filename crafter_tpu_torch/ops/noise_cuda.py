@@ -1,8 +1,10 @@
-"""Wrapper of the 2-D noise kernel (``csrc/noise2.cu``).
+"""Wrappers of the noise kernels (``csrc/noise2.cu``, ``csrc/noise3.cu``).
 
-Replaces ``crafter_tpu/ops/noise_pallas.py:noise2_pallas``.  For CUDA
-tensors it launches the kernel; for CPU tensors it runs the plain twin
-``ops/noise.py:noise2_fast``.  ``noise2.launches`` counts kernel launches.
+They replace ``crafter_tpu/ops/noise_pallas.py:noise2_pallas`` and
+``noise3_pallas``.  For CUDA tensors a wrapper launches its kernel; for CPU
+tensors it runs the plain twin (``ops/noise.py:noise2_fast`` /
+``noise3_fast``).  ``noise2.launches`` and ``noise3.launches`` count kernel
+launches.
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ from . import noise
 def noise2(points: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:
   """Noise at ``points`` (P, 2) float32 with per-point int32 ``seeds`` (P,).
   Returns (P,) float32."""
-  if points.ndim != 2 or points.shape[1] != 2 or seeds.shape != points.shape[:1]:
+  if (points.ndim != 2 or points.shape[1] != 2
+      or seeds.shape != points.shape[:1]):
     raise ValueError(f'points {tuple(points.shape)} / seeds '
                      f'{tuple(seeds.shape)}: want (P, 2) and (P,)')
   if not points.is_cuda:
@@ -47,3 +50,38 @@ def _launch_noise2(points: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:
       noise.F32_STRETCH, noise.F32_SQUISH, noise.F32_INV_NORM,
       _stream(pts)), 'noise2')
   return out
+
+
+def noise3(points: torch.Tensor, seed) -> torch.Tensor:
+  """The drop-in for ``noise3_fast`` on the card: noise at ``points``
+  (..., 3) float32 with an int32 ``seed``, a Python int or a tensor
+  broadcastable against the leading point dims.  Returns (...) float32."""
+  if points.ndim < 1 or points.shape[-1] != 3:
+    raise ValueError(f'points {tuple(points.shape)}: want (..., 3)')
+  if not points.is_cuda:
+    return noise.noise3_fast(points, seed)
+  if points.dtype != torch.float32:
+    raise TypeError('noise3 takes float32 points')
+  shape = points.shape[:-1]
+  pts = points.reshape(-1, 3).contiguous()
+  if isinstance(seed, torch.Tensor) and seed.numel() > 1:
+    if seed.dtype != torch.int32 or seed.device != points.device:
+      raise TypeError('noise3 takes int32 seeds on the points\' device')
+    seeds = seed.broadcast_to(shape).reshape(-1).contiguous()
+    seeds_ptr, seed_all = seeds.data_ptr(), 0
+  else:
+    # One seed for every point: passed by value, as the TPU wrapper
+    # broadcasts it.  Reduced to its int32 two's-complement value.
+    seed_all = ((int(seed) + 2 ** 31) % 2 ** 32) - 2 ** 31
+    seeds_ptr = None
+  out = torch.empty(pts.shape[0], dtype=torch.float32, device=pts.device)
+  lib = _build.library()
+  _build.check(lib.crafter_noise3(
+      pts.data_ptr(), seeds_ptr, seed_all, out.data_ptr(), pts.shape[0],
+      noise.F32_STRETCH_3D, noise.F32_SQUISH_3D, noise.F32_INV_NORM_3D,
+      _stream(pts)), 'noise3')
+  noise3.launches += 1
+  return out.reshape(shape)
+
+
+noise3.launches = 0

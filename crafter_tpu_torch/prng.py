@@ -10,7 +10,8 @@ whatever device the keys live on:
 * ``fold_in(k, d)``      -> threefry(k, (0, d))           (prng.threefry_fold_in)
 * ``split(k, n)[i]``     -> threefry(k, (0, i))           (foldlike split)
 * ``random_bits(k, s)``  -> b0 ^ b1 of threefry(k, (0, i)) over flat index i
-* ``uniform`` / ``randint`` as ``jax.random`` builds them from those bits.
+* ``uniform`` / ``randint`` / ``permutation`` / ``categorical`` as
+  ``jax.random`` builds them from those bits.
 
 A key is an int64 tensor ``(..., 2)`` holding the two uint32 words; int64
 keeps every intermediate exact without unsigned tensor support, and all
@@ -18,6 +19,8 @@ arithmetic is masked back to 32 bits.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -100,3 +103,33 @@ def randint(keys: torch.Tensor, minval: int, maxval: int) -> torch.Tensor:
   off = (((hi % span) * mult) & MASK32) + (lo % span)
   off = (off & MASK32) % span
   return (minval + off).to(torch.int32)
+
+
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+  """``jax.random.permutation(key, n)`` for one (2,) key: (n,) int64.
+
+  JAX shuffles by sorting (random.py:_shuffle): ``ceil(3 ln n / ln(2**32 -
+  1))`` rounds, each splitting the key in two, drawing 32 bits per element
+  from the second half and sorting the values stably by those bits."""
+  n = int(n)
+  x = torch.arange(n, dtype=torch.int64, device=key.device)
+  rounds = int(math.ceil(3 * math.log(max(1, n)) / math.log(MASK32)))
+  for _ in range(rounds):
+    key, sub = split(key, 2)
+    order = torch.sort(random_bits(sub, (n,)), stable=True).indices
+    x = x[order]
+  return x
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+  """``jax.random.categorical(key, logits)`` over the last axis for one key:
+  the argmax of the logits plus Gumbel noise ``-log(-log(u))``.
+
+  The uniform draw ``u`` is JAX's bit for bit (its ``uniform(minval=tiny)``
+  only lifts an exact 0 to the smallest normal float); the two logarithms
+  are this library's, so the result equals JAX's draw except where two
+  perturbed logits lie within the logarithms' rounding of each other."""
+  u = uniform(key, tuple(logits.shape)).clamp_min(
+      torch.finfo(torch.float32).tiny)
+  gumbel = -torch.log(-torch.log(u))
+  return torch.argmax(gumbel.to(logits.dtype) + logits, dim=-1)

@@ -2,10 +2,14 @@
 
 Marked ``cuda``: they need an NVIDIA GPU and nvcc and skip without them.
 Run on a GPU machine with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
-Tolerance: none (bitwise), for every kernel.
+Tolerance: none (bitwise), for every kernel.  The training step on the
+card is held to its own checks (counts, finite metrics, launches): its
+policy runs cuDNN's bfloat16 kernels, which no CPU run reproduces bit for
+bit.
 """
 
 import dataclasses
+import math
 
 import pytest
 import torch
@@ -13,7 +17,7 @@ import torch
 import crafter_tpu_torch as ct
 from crafter_tpu_torch import step as step_lib
 from crafter_tpu_torch import step_cuda, worldgen
-from crafter_tpu_torch.ops import noise, noise_cuda
+from crafter_tpu_torch.ops import noise, noise_cuda, roll_cuda
 from crafter_tpu_torch.state import leaves
 
 pytestmark = pytest.mark.cuda
@@ -162,3 +166,57 @@ def test_pixel_and_per_tick_paths_on_card_equal_cpu(dev):
   steps = torch.arange(0, 10001, dtype=torch.int32)
   assert torch.equal(ct.daylight(steps.to(dev), 300).cpu(),
                      ct.daylight(steps, 300))
+
+
+def test_noise3_kernel_matches_plain_twin(dev):
+  gen = torch.Generator(device=dev)
+  gen.manual_seed(6)
+  pts = (torch.rand(100003, 3, generator=gen, device=dev) - 0.5) * 100
+  seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (100003,), generator=gen,
+                        device=dev, dtype=torch.int32)
+  before = noise_cuda.noise3.launches
+  for seed in (77, -5, seeds):
+    assert torch.equal(noise_cuda.noise3(pts, seed),
+                       noise.noise3_fast(pts, seed))
+  grid = pts[:99999].reshape(3, 33333, 3)
+  assert torch.equal(noise_cuda.noise3(grid, seeds[:3, None]),
+                     noise.noise3_fast(grid, seeds[:3, None]))
+  assert noise_cuda.noise3.launches == before + 4
+
+
+@pytest.mark.parametrize('kind', roll_cuda.KINDS)
+def test_roll_kernel_matches_plain_twin(dev, kind):
+  gen = torch.Generator(device=dev)
+  gen.manual_seed(7)
+  x = torch.randint(0, 1 << 24, (1000, 4096), generator=gen, device=dev,
+                    dtype=torch.int32)
+  before = roll_cuda.roll_stages.launches
+  for stages in (0, 1, 10, 13, 40):
+    assert torch.equal(roll_cuda.roll_stages(x, kind, stages),
+                       roll_cuda.roll_stages_plain(x, kind, stages)), stages
+  assert roll_cuda.roll_stages.launches == before + 5
+
+
+def test_train_step_on_card(dev):
+  cfg = ct.PPOConfig(num_envs=16, rollout_len=10, epochs=2, minibatches=2,
+                     reset_batch=4)
+  ppo = ct.PPO(ct.EnvConfig(length=12), cfg, device=dev)
+  ts = ppo.init(ct.prng.key(0, dev))
+  before = {name: p.detach().clone()
+            for name, p in ts.params.named_parameters()}
+  launches = (step_cuda.tick.launches, ct.render_win79.launches,
+              step_cuda.balance.launches, noise_cuda.noise2.launches)
+  for _ in range(2):
+    ts, metrics, stats = ppo.train_step_with_stats(ts)
+  assert ts.update == 2 and ts.env_steps == 2 * 16 * 10
+  for name, v in metrics.items():
+    assert math.isfinite(float(v)), name
+  assert 0 < float(metrics['entropy']) <= math.log(17) + 1e-6
+  assert all(not torch.equal(before[name], p.detach())
+             for name, p in ts.params.named_parameters())
+  # An episode cap of 12 ticks ends every env inside the second rollout.
+  assert int(stats['count']) + int(stats['dropped']) == int(
+      metrics['episodes_done']) >= 16
+  now = (step_cuda.tick.launches, ct.render_win79.launches,
+         step_cuda.balance.launches, noise_cuda.noise2.launches)
+  assert all(b > a for a, b in zip(launches, now)), (launches, now)

@@ -1,8 +1,9 @@
-"""The port stands alone: ``crafter_tpu_torch`` and ``chip_smoke.py`` import
-neither JAX (nor flax) nor the JAX package nor an image library (PIL,
-imageio: the card's machine has none), checked both in a fresh
-interpreter (``sys.modules`` after importing every module) and by an AST
-scan of every import statement in their sources."""
+"""The port stands alone: ``crafter_tpu_torch``, ``chip_smoke.py`` and
+``tools/bench_roll_cuda.py`` import neither JAX (nor flax, optax, orbax or
+chex) nor the JAX package nor an image library (PIL, imageio: the card's
+machine has none), checked both in a fresh interpreter (``sys.modules``
+after importing every module) and by an AST scan of every import statement
+in their sources."""
 
 import ast
 import json
@@ -14,11 +15,13 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / 'crafter_tpu_torch'
-FORBIDDEN = ('jax', 'jaxlib', 'flax', 'crafter_tpu', 'PIL', 'imageio')
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'chex', 'crafter_tpu',
+             'PIL', 'imageio')
 
 
 def _sources():
-  return sorted(PORT.rglob('*.py')) + [ROOT / 'chip_smoke.py']
+  return sorted(PORT.rglob('*.py')) + [ROOT / 'chip_smoke.py',
+                                       ROOT / 'tools' / 'bench_roll_cuda.py']
 
 
 def _forbidden(module: str) -> bool:
@@ -50,7 +53,8 @@ def test_no_forbidden_modules_loaded():
       'import importlib, json, runpy, sys\n'
       f'for m in {modules!r}:\n'
       '  importlib.import_module(m.rstrip("."))\n'
-      f'runpy.run_path({str(ROOT / "chip_smoke.py")!r}, run_name="smoke")\n'
+      f'for script in {[str(p) for p in _sources()[-2:]]!r}:\n'
+      '  runpy.run_path(script, run_name="imported")\n'
       'print(json.dumps(sorted(sys.modules)))\n')
   out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
@@ -58,5 +62,6 @@ def test_no_forbidden_modules_loaded():
   loaded = json.loads(out.stdout.strip().splitlines()[-1])
   bad = [m for m in loaded if _forbidden(m)]
   assert not bad, bad
-  assert 'crafter_tpu_torch.step_cuda' in loaded
-  assert 'crafter_tpu_torch.render_cuda' in loaded
+  for name in ('step_cuda', 'render_cuda', 'ops.noise_cuda', 'ops.roll_cuda',
+               'ppo', 'models.cnn', 'checkpoint', 'run_train'):
+    assert f'crafter_tpu_torch.{name}' in loaded, name

@@ -1,7 +1,10 @@
 """The port's threefry draws against ``jax.random``, bit for bit.
 
 Every function the main path draws through (key, fold_in, split, randint,
-uniform) over many seeds and shapes; tolerance: none (bitwise).
+uniform, permutation) over many seeds and shapes; tolerance: none (bitwise).
+``categorical`` draws from JAX's uniform bits but takes this library's
+logarithms for the Gumbel noise, so it must equal JAX's draw on at least
+99.9% of 20000 rows and follow the softmax distribution (chi-square).
 """
 
 import jax
@@ -58,3 +61,33 @@ def test_randint(maxval):
       lambda k: jax.random.randint(k, (), 0, maxval))(keys))
   got = prng.randint(torch.from_numpy(_kd(keys)), 0, maxval)
   np.testing.assert_array_equal(want, got.numpy())
+
+
+@pytest.mark.parametrize('n', [1, 8, 16, 64, 256, 4096, 262144])
+def test_permutation(n):
+  for seed in (0, 3, 12345):
+    # A key as training meets it: split off a run key.
+    kj = jax.random.split(jax.random.key(seed), 3)[2]
+    want = np.asarray(jax.random.permutation(kj, n))
+    got = prng.permutation(torch.from_numpy(_kd(kj)), n)
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(want, got.numpy())
+
+
+def test_categorical_matches_jax_and_softmax():
+  rows, n_act = 20000, 17
+  logits = np.random.RandomState(0).randn(n_act).astype(np.float32)
+  batch = np.broadcast_to(logits, (rows, n_act)).copy()
+  kj = jax.random.key(21)
+  want = np.asarray(jax.random.categorical(kj, batch))
+  got = prng.categorical(torch.from_numpy(_kd(kj)),
+                         torch.from_numpy(batch)).numpy()
+  assert got.shape == (rows,) and got.min() >= 0 and got.max() < n_act
+  assert (got == want).mean() >= 0.999
+  # The draws follow softmax(logits): chi-square with 16 degrees of
+  # freedom, whose 99.9th percentile is 39.25.
+  probs = np.exp(logits - logits.max())
+  probs /= probs.sum()
+  counts = np.bincount(got, minlength=n_act)
+  chi2 = ((counts - rows * probs) ** 2 / (rows * probs)).sum()
+  assert chi2 < 39.25, chi2
