@@ -4,14 +4,24 @@ Run from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
-1. Builds the CUDA kernels of ``crafter_tpu_torch/csrc`` (nvcc, sm_90a).
+1. Builds the CUDA kernels of ``crafter_tpu_torch/csrc`` (nvcc, sm_90a),
+   prints each kernel's registers and spills, and the resident blocks per
+   SM and shared memory a block of the group and tick kernels at 64x64 and
+   at 48x48 (the occupancy calculator).
 2. Holds each kernel against its plain PyTorch twin on the card, on the
    same inputs at main-path shapes: the group tick (without and with render
    snapshots), the tick and the balance at 4096 envs (states reached by
-   stepping fresh worlds), the 2-D noise on one reset pass of 320 worlds, the
-   render kernel on 40960 frames (one pixel group's) in both output formats,
-   with a share of the frames at night, a share sleeping and some players at
-   the map's edge, the 3-D noise on the 3-D form of that reset pass's points
+   stepping fresh worlds); the group tick (K = 10, without and with
+   snapshots) and the tick again on states packed with entities
+   (``tests/dense_states.py``) at 4096 envs, on 1024 such states of a 48x48
+   world (the kernels' generic instantiation) and on the hand-built scenes
+   of the CPU tests, requiring skeletons to shoot, arrows to hit and
+   zombies to strike in the dense ticks; the 2-D noise on one reset pass
+   of 320 worlds, the render kernel on 40960 frames (one pixel group's) in
+   both output formats, timed at 4096 frames too (the per-tick paths'
+   batch), with a share of the frames at night, a share sleeping and some
+   players at the map's edge, the 3-D noise on the 3-D form of that reset
+   pass's points
    (each channel's z as the third coordinate) and the roll micro-bench
    kernel on (40960, 4096) int32 rows, all three kinds at 10 and 40 stages.
    Integer outputs, rewards and frame bytes must be bitwise equal; noise
@@ -49,6 +59,7 @@ phase raises, so the script exits non-zero and prints no result.
 import json
 import math
 import os
+import re
 import runpy
 import subprocess
 import sys
@@ -67,6 +78,8 @@ TWIN_CHUNK = 4096          # frames per call of the render kernel's twin
 TOP_OPS = 8
 NOISE_ATOL = 1e-6          # noise may differ from its twin by at most this
 ROLL_ROWS = 40960          # rows of the roll micro-bench (tools/bench_roll.py)
+# The tick kernels' generic instantiation is checked on this area.
+DENSE_AREA, DENSE_AREA_ENVS = (48, 48), 1024
 # The training path: the sizes of tools/bench_ppo.py.
 PPO_ENVS, PPO_ROLLOUT, PPO_RESET = 4096, 64, 32
 PPO_EPOCHS, PPO_MINIBATCHES = 3, 8
@@ -109,6 +122,20 @@ def fail(msg):
   raise SystemExit(f'chip_smoke: FAILED: {msg}')
 
 
+def kernel_name(mangled):
+  """The name of a kernel, with its height instantiation, out of its
+  mangled name: the last length-prefixed identifier that ends in
+  'kernel' (a namespace's hash may hold digits too)."""
+  name = mangled
+  for m in re.finditer(r'(?=(\d+))', mangled):
+    end = m.start() + len(m.group(1))
+    ident = mangled[end:end + int(m.group(1))]
+    if ident.endswith('kernel'):
+      height = re.match(r'ILi(\d+)E', mangled[end + len(ident):])
+      name = ident + (f'<{height.group(1)}>' if height else '')
+  return name
+
+
 def card_line():
   out = subprocess.run(
       ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
@@ -135,8 +162,11 @@ def main():
   from crafter_tpu_torch import render as render_lib
   from crafter_tpu_torch import render_cuda, worldgen
   from crafter_tpu_torch import checkpoint as ckpt_lib
+  from crafter_tpu_torch import convert
   from crafter_tpu_torch.ops import noise, noise_cuda, roll_cuda
   from crafter_tpu_torch.state import leaves
+  sys.path.insert(0, str(root / 'tests'))
+  import dense_states
 
   dev = torch.device('cuda')
   card = card_line()
@@ -149,8 +179,17 @@ def main():
   print(f'build: {time.perf_counter() - t0:.1f} s -> {lib_path}', flush=True)
   ptxas = (lib_path.parent / 'ptxas.log').read_text()
   for line in ptxas.splitlines():
-    if 'registers' in line or 'spill' in line or line.startswith('=='):
+    entry = re.search(r"entry function '(\w+)'", line)
+    if entry:
+      print(f'  kernel {kernel_name(entry.group(1))}')
+    elif 'registers' in line or 'spill' in line or line.startswith('=='):
       print(f'  {line.strip()}')
+  for area in ((64, 64), DENSE_AREA):
+    for kernel in ('group', 'tick'):
+      blocks, smem = step_cuda.occupancy(ct.EnvConfig(area=area), kernel)
+      print(f'occupancy: {kernel} kernel at {area[0]}x{area[1]}: {blocks} '
+            f'blocks of 256 threads per SM, {smem} bytes of shared memory '
+            'a block', flush=True)
 
   def timed(fn, reps):
     """``(result, ms)``: the median over ``reps`` calls after a warm-up, each
@@ -166,6 +205,25 @@ def main():
       spans[-1][1].record()
     torch.cuda.synchronize()
     return out, sorted(t0.elapsed_time(t1) for t0, t1 in spans)[reps // 2]
+
+  def device_ms(fn, kernel, reps=5):
+    """The mean device time of one launch of the CUDA kernel named
+    ``kernel`` over ``reps`` calls of ``fn`` (torch.profiler): the kernel
+    alone, without the wrapper's packing and launch on the host."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA]) as prof:
+      for _ in range(reps):
+        fn()
+      torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and kernel in e.key]
+    if not events:
+      fail(f'the profiler saw no device time of {kernel}')
+    return sum(e.self_device_time_total for e in events) / 1e3 / reps
 
   def max_err(a, b, what):
     """Max |a - b| over matching leaves (dataclasses, dicts or tensors);
@@ -203,6 +261,8 @@ def main():
   rows = []
 
   got, ms = timed(lambda: step_cuda.group_tick(env, acts, cfg), 5)
+  kernel_ms = device_ms(lambda: step_cuda.group_tick(env, acts, cfg),
+                        'group_tick_kernel')
   ref, plain_ms = timed(lambda: step_lib.step_group_plain(env, acts, cfg), 2)
   err = max(max_err(got[0], ref[0], 'group_tick state'),
             max_err(got[1], ref[1], 'group_tick raw'),
@@ -238,6 +298,8 @@ def main():
   # The same group with render snapshots.
   got_s, ms = timed(lambda: step_cuda.group_tick(env, acts, cfg,
                                                  snapshots=True), 5)
+  kernel_ms_s = device_ms(lambda: step_cuda.group_tick(
+      env, acts, cfg, snapshots=True), 'group_tick_kernel')
   ref_s, plain_ms = timed(lambda: step_lib.step_group_plain(
       env, acts, cfg, snapshots=True), 2)
   cut = lambda sn: dataclasses.replace(sn, packed=sn.packed[:k - 1])
@@ -259,6 +321,12 @@ def main():
   # One tick.
   sp, sm, _ = step_lib.tick_seeds(env.key, env.step + 1)
   tk, ms = timed(lambda: step_cuda.tick(env, acts[0], sp, sm, cfg), 5)
+  kernel_ms_t = device_ms(lambda: step_cuda.tick(env, acts[0], sp, sm, cfg),
+                          'tick_kernel')
+  print(f'group and tick kernels on the device alone (profiler): group '
+        f'{kernel_ms:.3f} ms, with snapshots {kernel_ms_s:.3f} ms, tick '
+        f'{kernel_ms_t:.3f} ms (with the wrapper: {rows[0]["ms"]:.3f}, '
+        f'{rows[1]["ms"]:.3f}, {ms:.3f} ms)', flush=True)
   tref, plain_ms = timed(lambda: step_lib.tick_plain(env, acts[0], sp, sm,
                                                      cfg), 2)
   err = max_err(tk, tref, 'tick')
@@ -275,6 +343,52 @@ def main():
       ops=active_entities(env) * OPS_TICK_ACTIVE + N_ENVS * OPS_TICK_PLAYER,
       library_ms=None))
   del tk, tref
+
+  # Both tick kernels on states packed with entities (tests/dense_states.py:
+  # players at corners and edges, skeletons that shoot, arrows that hit,
+  # zombies that strike), at 4096 envs and on another area (the generic
+  # instantiation), and on the hand-built scenes of the CPU tests.
+  scenes, scene_acts = dense_states.scene_states()
+  cases = [((64, 64), dense_states.dense_states(N_ENVS, 21), None),
+           (DENSE_AREA, dense_states.dense_states(
+               DENSE_AREA_ENVS, 22, DENSE_AREA), None),
+           ((64, 64), scenes, scene_acts)]
+  for area, tree, case_acts in cases:
+    dcfg = dataclasses.replace(cfg, area=area)
+    dense = convert.state_from_numpy(tree, dev)
+    nd = dense.step.shape[0]
+    if case_acts is None:
+      dacts = torch.randint(0, 17, (k, nd), generator=gen, device=dev,
+                            dtype=torch.int32)
+    else:
+      dacts = torch.as_tensor(case_acts[[t % 2 for t in range(k)]],
+                              device=dev)
+    what = f'{nd} {"scenes" if case_acts is not None else "dense states"}' \
+        f' at {area[0]}x{area[1]}'
+    for snaps in (False, True):
+      dg = step_cuda.group_tick(dense, dacts, dcfg, snapshots=snaps)
+      dr = step_lib.step_group_plain(dense, dacts, dcfg, snapshots=snaps)
+      if snaps:
+        dg, dr = dg[:3] + (cut(dg[3]),), dr[:3] + (cut(dr[3]),)
+      if any(max_err(a, b, f'group_tick {what}') for a, b in zip(dg, dr)):
+        fail(f'group_tick (snapshots {snaps}) disagrees with '
+             f'step_group_plain on {what}')
+    sp, sm, _ = step_lib.tick_seeds(dense.key, dense.step + 1)
+    tk = step_cuda.tick(dense, dacts[0], sp, sm, dcfg)
+    tref = step_lib.tick_plain(dense, dacts[0], sp, sm, dcfg)
+    if max_err(tk, tref, f'tick {what}'):
+      fail(f'tick disagrees with tick_plain on {what}')
+    shots, strikes, hits = dense_states.tick_events(
+        tree, convert.to_numpy(tref), area, dcfg.update_distance)
+    print(f'{what}: group tick (K = {k}, with and without snapshots) and '
+          f'tick bitwise equal to their twins; in the tick '
+          f'{int(shots.sum())} skeletons shot, {int(hits.sum())} arrows hit, '
+          f'{int(strikes.sum())} zombies struck', flush=True)
+    if case_acts is None and not (shots.sum() and hits.sum()
+                                  and strikes.sum()):
+      fail(f'{what}: no skeleton shot, no arrow hit or no zombie struck: '
+           'the check has no teeth')
+    del dense, dg, dr, tk, tref
 
   occ = got[2]
   s_bal = step_lib.tick_seeds(got[0].key, got[0].step)[2]
@@ -354,6 +468,10 @@ def main():
   del packed
   frames, ms = timed(lambda: render_cuda.render_win79(
       win79, light, sleeping, seeds, atlas, cfg.size, 'frames'), 5)
+  # The per-tick path and the training rollout render one frame an env.
+  _, ms_tick = timed(lambda: render_cuda.render_win79(
+      win79[:N_ENVS], light[:N_ENVS], sleeping[:N_ENVS], seeds[:N_ENVS],
+      atlas, cfg.size, 'frames'), 5)
   lanes, packed_ms = timed(lambda: render_cuda.render_win79(
       win79, light, sleeping, seeds, atlas, cfg.size, 'packed'), 5)
   # The twin in chunks (its intermediates are (B, P) planes), timed alone.
@@ -376,20 +494,28 @@ def main():
   plain_ms = sum(t0.elapsed_time(t1) for t0, t1 in spans)
   err = float(worst)
   print(f'render_win79: packed output {packed_ms:.3f} ms, frames output '
-        f'{ms:.3f} ms, {int(bad_px)} values differ from the twin, max '
-        f'|diff| {err}', flush=True)
+        f'{ms:.3f} ms ({N_ENVS} frames: {ms_tick:.3f} ms), {int(bad_px)} '
+        f'values differ from the twin, max |diff| {err}', flush=True)
   if int(bad_px) != 0 or err != 0:
     fail('render_win79 disagrees with render_win79_plain')
   pix = atlas.src.shape[0]
   lit_pix = int(atlas.view_mask.sum())
   table_bytes = sum(t.numel() * t.element_size() for _, t in leaves(atlas))
+  render_bytes = lambda frames: (frames * (win79.shape[1] * 4 + 12)
+                                 + table_bytes + frames * pix * 3)
+  render_ops = lambda frames, night: (
+      frames * (pix * OPS_RENDER_TEXEL + lit_pix * OPS_RENDER_LIGHT)
+      + night * lit_pix * OPS_RENDER_NOISE)
+  night_tick = int((light[:N_ENVS] < 0.5).sum())
+  bound_tick = max(render_bytes(N_ENVS) / HBM_BYTES_PER_S,
+                   render_ops(N_ENVS, night_tick) / CORE_OPS_PER_S) * 1e3
+  print(f'render_win79 at {N_ENVS} frames ({night_tick} at night): '
+        f'{ms_tick:.3f} ms, bound {bound_tick:.4f} ms', flush=True)
   rows.append(dict(
       name='render_win79', source='crafter_tpu_torch/csrc/render.cu',
       replaces='crafter_tpu/render.py:567', max_abs_err=err, ms=ms,
-      plain_ms=plain_ms,
-      bytes=b * (win79.shape[1] * 4 + 12) + table_bytes + b * pix * 3,
-      ops=b * (pix * OPS_RENDER_TEXEL + lit_pix * OPS_RENDER_LIGHT)
-      + n_night * lit_pix * OPS_RENDER_NOISE, library_ms=None))
+      plain_ms=plain_ms, bytes=render_bytes(b), ops=render_ops(b, n_night),
+      library_ms=None))
   del frames, lanes, win79, want, image, got_px, env, vs
   torch.cuda.empty_cache()
 
@@ -425,8 +551,10 @@ def main():
   del pts2, pts3, seeds3, nz, nref, keys
 
   # The roll micro-bench kernel on its rows, all three kinds at 10 and 40
-  # stages; the twin in row chunks.  The table's row is 'roll' at 10 stages;
-  # one torch.roll of the rows (one stage's rotate) is its library time.
+  # stages; the twin in row chunks.  The table's row is 'roll' at 10 stages.
+  # No one PyTorch call computes ten masked stages, so the row has no
+  # library time; one torch.roll of the rows (one stage's rotate) is timed
+  # to price a rotate.
   x = torch.randint(0, 1 << 24, (ROLL_ROWS, roll_cuda.COLS), generator=gen,
                     device=dev, dtype=torch.int32)
   roll_ms = {}
@@ -460,7 +588,7 @@ def main():
       name='roll', source='crafter_tpu_torch/csrc/roll.cu',
       replaces='tools/bench_roll.py:23', max_abs_err=0.0,
       ms=roll_ms['roll', 10][0], plain_ms=roll_ms['roll', 10][1],
-      bytes=2 * x.numel() * 4, ops=10 * x.numel(), library_ms=lib_ms))
+      bytes=2 * x.numel() * 4, ops=10 * x.numel(), library_ms=None))
   del x, got_x, want_x
   torch.cuda.empty_cache()
 
@@ -888,7 +1016,9 @@ def main():
         'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')})
     print(f'{row["name"]} on {card}: {row["ms"]:.3f} ms (plain '
           f'{row["plain_ms"]:.3f} ms, bound {row["bound_ms"]:.4f} ms by '
-          f'{row["bound_by"]}), {row["launches"]} launches on the paths')
+          f'{row["bound_by"]}), {row["launches"]} launches on the paths, '
+          f'launches x (ms - bound) '
+          f'{row["launches"] * (row["ms"] - row["bound_ms"]):.1f} ms')
   print(json.dumps({
       'kernels': kernels, 'card': card,
       'env_steps_per_s': {'state_only': sps, 'pixel': pixel_sps,

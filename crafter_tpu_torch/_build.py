@@ -108,14 +108,15 @@ def library() -> ctypes.CDLL:
     lib.crafter_roll.argtypes = [vp, vp, i64, i32, i32, vp]
     lib.crafter_group_tick.argtypes = [vp] * 24 + [i32] * 6 + [vp]
     lib.crafter_tick.argtypes = [vp] * 16 + [i32] * 4 + [vp]
+    lib.crafter_tick_occupancy.argtypes = [i32] * 4 + [ctypes.POINTER(i32)] * 2
     lib.crafter_render.argtypes = ([vp] * 5 + [i32, vp, i32] + [vp] * 4
                                    + [i32] * 4 + [vp])
     lib.crafter_balance.argtypes = [vp] * 14 + [i32] * 7 + [vp]
     lib.crafter_error_string.argtypes = [i32]
     lib.crafter_error_string.restype = ctypes.c_char_p
     for fn in ('crafter_noise2', 'crafter_noise3', 'crafter_roll',
-               'crafter_group_tick', 'crafter_tick', 'crafter_balance',
-               'crafter_render'):
+               'crafter_group_tick', 'crafter_tick', 'crafter_tick_occupancy',
+               'crafter_balance', 'crafter_render'):
       getattr(lib, fn).restype = i32
     _lib = lib
   return _lib

@@ -10,11 +10,13 @@
 
 For CUDA tensors each wrapper launches its kernel; for CPU tensors it runs
 the twin.  ``group_tick.launches`` / ``tick.launches`` /
-``balance.launches`` count launches.
+``balance.launches`` count launches.  :func:`occupancy` reports how many
+blocks of the group or tick kernel an SM holds.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 
@@ -78,18 +80,37 @@ def _contig(*ts):
   return [t.contiguous() for t in ts]
 
 
-def _record(states: State) -> torch.Tensor:
-  """The (N, REC) int32 per-env record the kernels read."""
+# The state's tensors the kernels read the record from, in record order
+# (group_tick.cu:RecIn): (owner, field, words).
+REC_FIELDS = (('player', 'facing', 1), ('player', 'pos', 2),
+              ('player', 'sleeping', 1), ('player', 'hunger', 1),
+              ('player', 'thirst', 1), ('player', 'fatigue', 1),
+              ('player', 'recover', 1), ('player', 'last_health', 1),
+              ('state', 'step', 1), ('state', 'env_last_health', 1),
+              ('state', 'key', 2), ('player', 'inventory', rules.N_ITEMS),
+              ('player', 'achievements', rules.N_ACHIEVEMENTS),
+              ('state', 'unlocked', rules.N_ACHIEVEMENTS))
+_KIND = {torch.int32: 0, torch.bool: 1, torch.uint8: 1, torch.int64: 2}
+
+
+def _record_in(states: State):
+  """Where the kernels read each env's record (group_tick.cu:RecIn, three
+  int64 words a field: pointer, stride between envs, element kind) and the
+  tensors to keep alive until the launch: the state's own, converted only
+  where their type or layout is not one the kernels read."""
   n = states.step.shape[0]
-  p = states.player
-  k0, k1 = step_lib.key_words_i32(states.key)
-  col = lambda v: v.to(torch.int32).reshape(n, 1)
-  return torch.cat(
-      [col(p.facing), col(p.pos[:, 0]), col(p.pos[:, 1]), col(p.sleeping),
-       col(p.hunger), col(p.thirst), col(p.fatigue), col(p.recover),
-       col(p.last_health), col(states.step), col(states.env_last_health),
-       col(k0), col(k1), p.inventory.to(torch.int32),
-       p.achievements.to(torch.int32), states.unlocked.to(torch.int32)], 1)
+  words, keep = [], []
+  for owner, name, width in REC_FIELDS:
+    t = getattr(states.player if owner == 'player' else states, name)
+    if t.dtype not in _KIND:
+      t = t.to(torch.int32)
+    if t.shape[0] != n or t.numel() != n * width:
+      raise TypeError(f'{name} {tuple(t.shape)}: want {n} envs of {width}')
+    if t.dim() == 2 and t.stride(1) != 1:
+      t = t.contiguous()
+    words += (t.data_ptr(), t.stride(0), _KIND[t.dtype])
+    keep.append(t)
+  return (ctypes.c_longlong * len(words))(*words), keep
 
 
 def _planes(states: State, cfg: EnvConfig):
@@ -106,14 +127,16 @@ def _planes(states: State, cfg: EnvConfig):
 
 
 def _state_from(states: State, outs, rec_out: torch.Tensor, **fields) -> State:
-  """The state after a kernel: its output planes and record."""
+  """The state after a kernel: its output planes, and the player as views
+  of the record it wrote."""
   s = len(REC_SCALARS)
   ni, na = rules.N_ITEMS, rules.N_ACHIEVEMENTS
   r = lambda name: rec_out[:, REC_SCALARS.index(name)]
+  px = REC_SCALARS.index('px')
   player = Player(
-      pos=torch.stack([r('px'), r('py')], 1), facing=r('facing'),
-      inventory=rec_out[:, s:s + ni].clone(),
-      achievements=rec_out[:, s + ni:s + ni + na].clone(),
+      pos=rec_out[:, px:px + 2], facing=r('facing'),
+      inventory=rec_out[:, s:s + ni],
+      achievements=rec_out[:, s + ni:s + ni + na],
       sleeping=r('sleeping') != 0, hunger=r('hunger'), thirst=r('thirst'),
       fatigue=r('fatigue'), recover=r('recover'),
       last_health=r('last_health'))
@@ -147,12 +170,12 @@ def _launch_group_tick(states: State, actions: torch.Tensor, cfg: EnvConfig,
   if snapshots and k < 2:
     raise ValueError('snapshots need a group of at least 2 ticks')
   dev = states.mat_map.device
-  rec_in = _record(states)
+  rec_in, keep = _record_in(states)
   planes = _planes(states, cfg)
   acts = actions.to(torch.int32).contiguous()
   outs = [torch.empty_like(pl) for pl in planes]
   occ = torch.empty((n, c), dtype=torch.uint8, device=dev)
-  rec_out = torch.empty_like(rec_in)
+  rec_out = torch.empty((n, REC), dtype=torch.int32, device=dev)
   reward = torch.empty((k, n), dtype=torch.float32, device=dev)
   done = torch.empty((k, n), dtype=torch.bool, device=dev)
   dead = torch.empty((k, n), dtype=torch.bool, device=dev)
@@ -167,8 +190,10 @@ def _launch_group_tick(states: State, actions: torch.Tensor, cfg: EnvConfig,
   snap_ptrs = ([t.data_ptr() for _, t in state_lib.leaves(snaps)]
                if snapshots else [None] * 6)
   lib = _build.library()
-  ptrs = [t.data_ptr() for t in (*planes, acts, rec_in, _rules_blob(str(dev)),
-                                 *outs, occ, rec_out, reward, done, dead)]
+  ptrs = [t.data_ptr() for t in (*planes, acts)]
+  ptrs += [ctypes.addressof(rec_in)]
+  ptrs += [t.data_ptr() for t in (_rules_blob(str(dev)), *outs, occ, rec_out,
+                                  reward, done, dead)]
   _build.check(lib.crafter_group_tick(
       *ptrs, *snap_ptrs, n, k, w, h, int(cfg.length or 0),
       cfg.update_distance, _stream(acts)), 'group_tick')
@@ -206,16 +231,29 @@ def _launch_tick(states: State, actions, s_player, s_mob, cfg: EnvConfig):
     if v.shape != (n,) or v.device != dev:
       raise ValueError(f'per-env column {tuple(v.shape)} on {v.device}: '
                        f'want ({n},) on {dev}')
-  rec_in = _record(states)
+  rec_in, keep = _record_in(states)
   planes = _planes(states, cfg)
   outs = [torch.empty_like(pl) for pl in planes]
-  rec_out = torch.empty_like(rec_in)
+  rec_out = torch.empty((n, REC), dtype=torch.int32, device=dev)
   lib = _build.library()
-  ptrs = [t.data_ptr() for t in (*planes, *cols, rec_in,
-                                 _rules_blob(str(dev)), *outs, rec_out)]
+  ptrs = [t.data_ptr() for t in (*planes, *cols)]
+  ptrs += [ctypes.addressof(rec_in)]
+  ptrs += [t.data_ptr() for t in (_rules_blob(str(dev)), *outs, rec_out)]
   _build.check(lib.crafter_tick(*ptrs, n, w, h, cfg.update_distance,
-                                _stream(rec_in)), 'tick')
+                                _stream(rec_out)), 'tick')
   return _state_from(states, outs, rec_out)
+
+
+def occupancy(cfg: EnvConfig, kernel: str = 'group') -> tuple[int, int]:
+  """``(blocks per SM, shared bytes per block)`` of the group kernel
+  (``kernel='group'``) or the tick kernel (``'tick'``) for ``cfg``'s area
+  and update window, from the CUDA occupancy calculator."""
+  blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+  w, h = cfg.area
+  _build.check(_build.library().crafter_tick_occupancy(
+      ('group', 'tick').index(kernel), w, h, cfg.update_distance,
+      ctypes.byref(blocks), ctypes.byref(smem)), f'{kernel} occupancy')
+  return blocks.value, smem.value
 
 
 def balance(states: State, seeds: torch.Tensor,

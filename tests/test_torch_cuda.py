@@ -2,6 +2,9 @@
 
 Marked ``cuda``: they need an NVIDIA GPU and nvcc and skip without them.
 Run on a GPU machine with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
+The group and tick kernels are held on states stepped from fresh worlds,
+on states packed with entities (``dense_states.py``, at 64 x 64 and on the
+generic instantiation at 48 x 48) and on the hand-built scenes.
 Tolerance: none (bitwise), for every kernel.  The training step on the
 card is held to its own checks (counts, finite metrics, launches): its
 policy runs cuDNN's bfloat16 kernels, which no CPU run reproduces bit for
@@ -15,10 +18,12 @@ import pytest
 import torch
 
 import crafter_tpu_torch as ct
+from crafter_tpu_torch import convert
 from crafter_tpu_torch import step as step_lib
 from crafter_tpu_torch import step_cuda, worldgen
 from crafter_tpu_torch.ops import noise, noise_cuda, roll_cuda
 from crafter_tpu_torch.state import leaves
+import dense_states
 
 pytestmark = pytest.mark.cuda
 
@@ -166,6 +171,47 @@ def test_pixel_and_per_tick_paths_on_card_equal_cpu(dev):
   steps = torch.arange(0, 10001, dtype=torch.int32)
   assert torch.equal(ct.daylight(steps.to(dev), 300).cpu(),
                      ct.daylight(steps, 300))
+
+
+def _check_tick_kernels(dev, cfg, tree, acts):
+  """The group tick (K = acts.shape[0], with and without snapshots) and
+  the tick kernel against their twins on the state ``tree``."""
+  states = convert.state_from_numpy(tree, dev)
+  acts = torch.as_tensor(acts, device=dev)
+  for snaps in (False, True):
+    got = step_cuda.group_tick(states, acts, cfg, snapshots=snaps)
+    ref = step_lib.step_group_plain(states, acts, cfg, snapshots=snaps)
+    for a, b in zip(got[:3], ref[:3]):
+      _assert_equal(a, b)
+    if snaps:
+      assert torch.equal(got[3].packed[:-1], ref[3].packed[:-1])
+      for name in ('px', 'py', 'facing', 'sleeping', 'inv'):
+        assert torch.equal(getattr(got[3], name), getattr(ref[3], name))
+  sp, sm, _ = step_lib.tick_seeds(states.key, states.step + 1)
+  _assert_equal(step_cuda.tick(states, acts[0], sp, sm, cfg),
+                step_lib.tick_plain(states, acts[0], sp, sm, cfg))
+
+
+@pytest.mark.parametrize('area', [(64, 64), (48, 48)])
+def test_tick_kernels_on_dense_states(dev, area):
+  """States packed with entities; 48 x 48 runs the generic instantiation."""
+  cfg = ct.EnvConfig(area=area)
+  tree = dense_states.dense_states(128, 5, area, cfg.update_distance)
+  gen = torch.Generator().manual_seed(8)
+  acts = torch.randint(0, 17, (10, 128), generator=gen)
+  _check_tick_kernels(dev, cfg, tree, acts)
+
+
+def test_tick_kernels_on_scenes(dev):
+  tree, acts = dense_states.scene_states()
+  _check_tick_kernels(dev, ct.EnvConfig(), tree,
+                      acts[[t % 2 for t in range(10)]])
+
+
+def test_tick_kernel_occupancy(dev):
+  for kernel in ('group', 'tick'):
+    blocks, smem = step_cuda.occupancy(ct.EnvConfig(), kernel)
+    assert blocks >= 5 and smem <= 46 * 1024, (kernel, blocks, smem)
 
 
 def test_noise3_kernel_matches_plain_twin(dev):

@@ -21,6 +21,7 @@ import torch
 from crafter_tpu import env as jenv
 from crafter_tpu.config import EnvConfig as JaxConfig
 import crafter_tpu_torch as ct
+from one_thread import one_torch_thread  # noqa: F401
 
 
 def _to_numpy(tree):

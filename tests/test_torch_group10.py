@@ -20,6 +20,7 @@ import torch
 from crafter_tpu import env as jenv
 from crafter_tpu.config import EnvConfig as JaxConfig
 import crafter_tpu_torch as ct
+from one_thread import one_torch_thread  # noqa: F401
 from test_torch_env import _assert_same, _to_numpy
 
 

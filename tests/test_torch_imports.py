@@ -1,6 +1,8 @@
-"""The port stands alone: ``crafter_tpu_torch``, ``chip_smoke.py`` and
-``tools/bench_roll_cuda.py`` import neither JAX (nor flax, optax, orbax or
-chex) nor the JAX package nor an image library (PIL, imageio: the card's
+"""The port stands alone: ``crafter_tpu_torch``, ``chip_smoke.py``, the
+GPU tools ``tools/bench_roll_cuda.py`` and ``tools/bench_paths_cuda.py``
+and ``tests/dense_states.py`` (which ``chip_smoke.py`` imports) import
+neither JAX (nor flax, optax, orbax or chex) nor the JAX package nor an
+image library (PIL, imageio: the card's
 machine has none), checked both in a fresh interpreter (``sys.modules``
 after importing every module) and by an AST scan of every import statement
 in their sources."""
@@ -19,9 +21,13 @@ FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'chex', 'crafter_tpu',
              'PIL', 'imageio')
 
 
+SCRIPTS = [ROOT / 'chip_smoke.py', ROOT / 'tools' / 'bench_roll_cuda.py',
+           ROOT / 'tools' / 'bench_paths_cuda.py',
+           ROOT / 'tests' / 'dense_states.py']
+
+
 def _sources():
-  return sorted(PORT.rglob('*.py')) + [ROOT / 'chip_smoke.py',
-                                       ROOT / 'tools' / 'bench_roll_cuda.py']
+  return sorted(PORT.rglob('*.py')) + SCRIPTS
 
 
 def _forbidden(module: str) -> bool:
@@ -53,7 +59,7 @@ def test_no_forbidden_modules_loaded():
       'import importlib, json, runpy, sys\n'
       f'for m in {modules!r}:\n'
       '  importlib.import_module(m.rstrip("."))\n'
-      f'for script in {[str(p) for p in _sources()[-2:]]!r}:\n'
+      f'for script in {[str(p) for p in SCRIPTS]!r}:\n'
       '  runpy.run_path(script, run_name="imported")\n'
       'print(json.dumps(sorted(sys.modules)))\n')
   out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,

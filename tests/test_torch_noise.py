@@ -23,6 +23,7 @@ from crafter_tpu_torch import worldgen
 from crafter_tpu_torch.config import EnvConfig
 from crafter_tpu_torch.ops import noise
 from crafter_tpu_torch.ops.fma import fma32
+from one_thread import one_torch_thread  # noqa: F401
 
 PALLAS_ATOL = 1e-6
 

@@ -20,19 +20,9 @@ from crafter_tpu.ops.noise_pallas import noise3_pallas
 from crafter_tpu_torch import worldgen
 from crafter_tpu_torch.config import EnvConfig
 from crafter_tpu_torch.ops import noise, noise_cuda, roll_cuda
+from one_thread import one_torch_thread  # noqa: F401
 
 PALLAS_ATOL = 1e-5
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _one_torch_thread():
-  """The suite runs several workers side by side; PyTorch's thread pool,
-  sized for the whole machine in each of them, then spends its time
-  spinning.  These tests are small: one thread is enough."""
-  before = torch.get_num_threads()
-  torch.set_num_threads(1)
-  yield
-  torch.set_num_threads(before)
 
 
 def _worldgen_points3():

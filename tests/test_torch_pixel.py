@@ -21,6 +21,7 @@ from crafter_tpu import step as jstep
 from crafter_tpu.config import EnvConfig as JaxConfig
 import crafter_tpu_torch as ct
 from crafter_tpu_torch import step_cuda
+from one_thread import one_torch_thread  # noqa: F401
 
 N, K, LENGTH, RESET_BATCH = 13, 3, 7, 4
 JCFG = JaxConfig(length=LENGTH, balance_every=K, engine='pallas')

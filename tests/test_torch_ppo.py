@@ -30,19 +30,9 @@ from crafter_tpu.models import CnnPolicy as JaxPolicy
 import crafter_tpu_torch as ct
 from crafter_tpu_torch import checkpoint, prng, run_train
 from crafter_tpu_torch.convert import policy_from_flax
+from one_thread import one_torch_thread  # noqa: F401
 
 T, N = 6, 5
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _one_torch_thread():
-  """The suite runs several workers side by side; PyTorch's thread pool,
-  sized for the whole machine in each of them, then spends its time
-  spinning.  These tests are small: one thread is enough."""
-  before = torch.get_num_threads()
-  torch.set_num_threads(1)
-  yield
-  torch.set_num_threads(before)
 
 
 def _np_tree(tree):

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from crafter_tpu_torch import prng
+from one_thread import one_torch_thread  # noqa: F401
 
 SEEDS = [0, 1, 7, 42, 12345, 2 ** 31 - 1]
 

@@ -17,17 +17,7 @@ from crafter_tpu import recorder as jrecorder
 from crafter_tpu import rules as jrules
 from crafter_tpu_torch import analysis, recorder, rules
 from crafter_tpu_torch.utils import Timer, trace
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _one_torch_thread():
-  """The suite runs several workers side by side; PyTorch's thread pool,
-  sized for the whole machine in each of them, then spends its time
-  spinning.  These tests are small: one thread is enough."""
-  before = torch.get_num_threads()
-  torch.set_num_threads(1)
-  yield
-  torch.set_num_threads(before)
+from one_thread import one_torch_thread  # noqa: F401
 
 
 def _episodes(seed, n):

@@ -31,6 +31,7 @@ import crafter_tpu_torch as ct
 from crafter_tpu_torch import render as render_lib
 from crafter_tpu_torch import render_cuda, rules
 from crafter_tpu_torch import state as state_lib
+from one_thread import one_torch_thread  # noqa: F401
 
 CFG = ct.EnvConfig()
 JCFG = JaxConfig()

@@ -29,6 +29,7 @@ from crafter_tpu_torch import convert, rules, step_cuda
 from crafter_tpu_torch import state as state_lib
 from crafter_tpu_torch import step as step_lib
 from crafter_tpu_torch.config import EnvConfig
+from one_thread import one_torch_thread  # noqa: F401
 
 A = rules.ACTION_ID
 CFG = EnvConfig(engine='plain', noise_mode='fast')

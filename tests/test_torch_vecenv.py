@@ -26,6 +26,7 @@ from crafter_tpu import step as jstep
 from crafter_tpu.config import EnvConfig as JaxConfig
 import crafter_tpu_torch as ct
 from crafter_tpu_torch import step_cuda
+from one_thread import one_torch_thread  # noqa: F401
 
 N = 13
 

@@ -15,6 +15,7 @@ from crafter_tpu import worldgen as jworldgen
 from crafter_tpu.config import EnvConfig as JaxConfig
 from crafter_tpu_torch import convert, worldgen
 from crafter_tpu_torch.config import EnvConfig
+from one_thread import one_torch_thread  # noqa: F401
 
 
 def _to_numpy(tree):

@@ -1,0 +1,94 @@
+"""Time the port's state-only and per-tick paths on one GPU, so that two
+trees of the repository can be compared inside one call.
+
+    python3 tools/bench_paths_cuda.py [--root DIR] [--groups 10] [--ticks 20]
+
+Imports ``crafter_tpu_torch`` from DIR (default: this checkout; its kernels
+are built there at first use) and, at 4096 envs, times groups of
+``vec_step_group`` (K = 10, ``reset_batch`` 320, random actions drawn on
+the card) and ``VecEnv.step`` calls (``reset_batch`` 32) between CUDA
+events after a warm-up, then profiles 3 groups and 6 ticks
+(``torch.profiler``): wall and device-busy ms, and the device time of the
+group and tick kernels.  Prints one JSON line with the card's name and
+power limit.  Needs a GPU.
+"""
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+N_ENVS, RESET_BATCH = 4096, 320
+
+
+def main():
+  ap = argparse.ArgumentParser()
+  ap.add_argument('--root', default=str(Path(__file__).resolve().parent.parent))
+  ap.add_argument('--groups', type=int, default=10)
+  ap.add_argument('--ticks', type=int, default=20)
+  args = ap.parse_args()
+  sys.path.insert(0, str(Path(args.root).resolve()))
+  import torch
+  if not torch.cuda.is_available():
+    raise SystemExit('bench_paths_cuda: needs a GPU')
+  import crafter_tpu_torch as ct
+
+  card = subprocess.run(
+      ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+      capture_output=True, text=True, check=True).stdout.strip()
+  dev = torch.device('cuda')
+  cfg = ct.EnvConfig(reward=False)
+  k = cfg.balance_every
+  gen = torch.Generator(device=dev)
+  gen.manual_seed(0)
+  draw = lambda: torch.randint(0, 17, (k, N_ENVS), generator=gen, device=dev,
+                               dtype=torch.int32)
+
+  def events(fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+      fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+  def profile(fn, reps):
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA]) as prof:
+      t0 = time.perf_counter()
+      for _ in range(reps):
+        fn()
+      torch.cuda.synchronize()
+      wall = (time.perf_counter() - t0) * 1e3 / reps
+    dev_events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev_events) / 1e3 / reps
+    kernel = sum(e.self_device_time_total for e in dev_events
+                 if 'tick_kernel' in e.key) / 1e3 / reps
+    return {'wall_ms': wall, 'device_busy_ms': busy, 'tick_kernels_ms': kernel}
+
+  box = [ct.vec_reset_chunked(ct.home_keys(0, N_ENVS, dev), cfg)]
+
+  def group():
+    box[0], _ = ct.vec_step_group(box[0], draw(), cfg, RESET_BATCH)
+
+  out = {'root': args.root, 'card': card}
+  out['state_only_ms_per_group'] = events(group, args.groups)
+  out['state_only_profile'] = profile(group, 3)
+  venv = ct.VecEnv(N_ENVS, cfg, seed=3, device=dev)
+  venv.reset()
+  step = lambda: venv.step(draw()[0])
+  out['per_tick_ms_per_tick'] = events(step, args.ticks)
+  out['per_tick_profile'] = profile(step, 6)
+  print(json.dumps(out))
+
+
+if __name__ == '__main__':
+  main()
