@@ -7,7 +7,8 @@ Run from the repository root on a machine with an NVIDIA H100:
 1. Builds the CUDA kernels of ``crafter_tpu_torch/csrc`` (nvcc, sm_90a),
    prints each kernel's registers and spills, and the resident blocks per
    SM and shared memory a block of the group and tick kernels at 64x64 and
-   at 48x48 (the occupancy calculator).
+   at 48x48, and of the render kernel's two instantiations at 64x64 and of
+   its global one at 512x512 (the occupancy calculator).
 2. Holds each kernel against its plain PyTorch twin on the card, on the
    same inputs at main-path shapes: the group tick (without and with render
    snapshots), the tick and the balance at 4096 envs (states reached by
@@ -16,12 +17,17 @@ Run from the repository root on a machine with an NVIDIA H100:
    (``tests/dense_states.py``) at 4096 envs, on 1024 such states of a 48x48
    world (the kernels' generic instantiation) and on the hand-built scenes
    of the CPU tests, requiring skeletons to shoot, arrows to hit and
-   zombies to strike in the dense ticks; the 2-D noise on one reset pass
-   of 320 worlds, the render kernel on 40960 frames (one pixel group's) in
-   both output formats, timed at 4096 frames too (the per-tick paths'
-   batch), with a share of the frames at night, a share sleeping and some
-   players at the map's edge, the 3-D noise on the 3-D form of that reset
-   pass's points
+   zombies to strike in the dense ticks; the 2-D noise in its shared form
+   (the channels' points once, a seed a world and channel) and its
+   per-point form at 320, 512 and 32 worlds (a reset pass, a chunk of
+   ``vec_reset_chunked``, the per-tick reset pass), the worlds made from it
+   equal to the per-point twin's and, at 320 and 32, to the CPU's; the
+   render kernel on 40960 frames (one pixel group's) in both output
+   formats and both instantiations (tables in shared memory or read from
+   global memory), on 4096 frames (the per-tick paths' batch), with a
+   share of the frames at night, a share sleeping and some players at the
+   map's edge, and at 512x512 (the global instantiation); the 3-D noise on
+   the 3-D form of that reset pass's points
    (each channel's z as the third coordinate) and the roll micro-bench
    kernel on (40960, 4096) int32 rows, all three kinds at 10 and 40 stages.
    Integer outputs, rewards and frame bytes must be bitwise equal; noise
@@ -51,8 +57,10 @@ Run from the repository root on a machine with an NVIDIA H100:
    within POLICY_ATOL; and a training state saved on the card, restored and
    stepped must equal the one stepped without the round trip.
 
-Prints the kernel table as one JSON line, then the card's name and power
-limit, then ``{"ok": true, "device": {...}}`` as the last line.  Any failed
+Every kernel's time is taken with the wrapper (CUDA events) and on the
+device alone (``torch.profiler``).  Prints the kernel table as one JSON
+line, one row per kernel and main-path shape, then the card's name and
+power limit, then ``{"ok": true, "device": {...}}`` as the last line.  Any failed
 phase raises, so the script exits non-zero and prints no result.
 """
 
@@ -75,6 +83,9 @@ PIXEL_GROUPS = 10          # timed groups of the pixel path, per turn
 TICKS = 20                 # timed VecEnv.step calls of the per-tick path
 PROFILE_GROUPS = 3         # groups under torch.profiler for the breakdown
 TWIN_CHUNK = 4096          # frames per call of the render kernel's twin
+RENDER_BIG = (512, 512)    # a render size whose tables do not fit in shared
+RENDER_BIG_FRAMES = 64     # memory: the kernel's global instantiation
+NOISE_WORLDS = (320, 512, 32)   # reset pass, vec_reset_chunked, per tick
 TOP_OPS = 8
 NOISE_ATOL = 1e-6          # noise may differ from its twin by at most this
 ROLL_ROWS = 40960          # rows of the roll micro-bench (tools/bench_roll.py)
@@ -99,7 +110,9 @@ CORE_OPS_PER_S = 67e12
 # strikes and removals (~30); the kernel's own dense sweep over every cell
 # is not work the function needs.  The player phase costs ~300 a tick per
 # env.  The balance needs ~4 a cell to sort it into its chunk's counts;
-# the noise ~250 a point (8 candidates of ~16 float and ~14 integer ops).
+# the 2-D noise ~170 a point (csrc/noise2.cu:noise_at: 8 candidates of 12
+# float operations, 6 integer ones and a table load, ~26 for the base
+# corner).
 # Every rendered pixel needs its texel (~30: three indexed loads, the
 # three-channel blit, packing); a pixel of the lit view also the lighting
 # (~75: two lumas, desaturate, tint, daylight blend, sleep overlay, floors);
@@ -108,7 +121,7 @@ CORE_OPS_PER_S = 67e12
 OPS_TICK_ACTIVE = 180
 OPS_TICK_PLAYER = 300
 OPS_BALANCE_CELL = 4
-OPS_NOISE_POINT = 250
+OPS_NOISE_POINT = 170
 # The 3-D noise: 26 candidates of ~24 float operations (offsets, squish,
 # attenuation, gradient dot, sum) and ~31 integer ones (hash, modulo,
 # gradient decode), and ~20 to find the base cell.
@@ -190,6 +203,17 @@ def main():
       print(f'occupancy: {kernel} kernel at {area[0]}x{area[1]}: {blocks} '
             f'blocks of 256 threads per SM, {smem} bytes of shared memory '
             'a block', flush=True)
+  cfg0 = ct.EnvConfig()
+  for size, shared in (((64, 64), True), ((64, 64), False),
+                       (RENDER_BIG, False)):
+    big = ct.bake_atlas(size, cfg0.view, cfg0.item_rows, dev)
+    blocks, smem = render_cuda.occupancy(big, shared)
+    print(f'occupancy: render kernel at {size[0]}x{size[1]} '
+          f'({"shared" if shared else "global"} tables): {blocks} blocks of '
+          f'512 threads per SM, {smem} bytes of shared memory a block',
+          flush=True)
+    if blocks == 0:
+      fail(f'the render kernel cannot run at {size}')
 
   def timed(fn, reps):
     """``(result, ms)``: the median over ``reps`` calls after a warm-up, each
@@ -209,21 +233,30 @@ def main():
   def device_ms(fn, kernel, reps=5):
     """The mean device time of one launch of the CUDA kernel named
     ``kernel`` over ``reps`` calls of ``fn`` (torch.profiler): the kernel
-    alone, without the wrapper's packing and launch on the host."""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[
-        torch.profiler.ProfilerActivity.CPU,
-        torch.profiler.ProfilerActivity.CUDA]) as prof:
-      for _ in range(reps):
-        fn()
+    alone, without the wrapper's packing and launch on the host.  The mean
+    is over the launches the profiler recorded: it loses some at times,
+    and where it recorded none in three tries the time is not measured
+    (None)."""
+    for _ in range(3):
+      fn()
       torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and kernel in e.key]
-    if not events:
-      fail(f'the profiler saw no device time of {kernel}')
-    return sum(e.self_device_time_total for e in events) / 1e3 / reps
+      with torch.profiler.profile(activities=[
+          torch.profiler.ProfilerActivity.CPU,
+          torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+          fn()
+        torch.cuda.synchronize()
+      events = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and kernel in e.key]
+      launches = sum(e.count for e in events)
+      if launches:
+        return sum(e.self_device_time_total for e in events) / 1e3 / launches
+    print(f'  the profiler recorded no launch of {kernel} in three tries')
+    return None
+
+  def dev_str(t):
+    return 'not measured' if t is None else f'{t:.4f} ms'
 
   def max_err(a, b, what):
     """Max |a - b| over matching leaves (dataclasses, dicts or tensors);
@@ -293,7 +326,8 @@ def main():
   rows.append(dict(
       name='group_tick', source='crafter_tpu_torch/csrc/group_tick.cu',
       replaces='crafter_tpu/step.py:1373', max_abs_err=err, ms=ms,
-      plain_ms=plain_ms, bytes=group_bytes, ops=group_ops, library_ms=None))
+      plain_ms=plain_ms, bytes=group_bytes, ops=group_ops, library_ms=None,
+      device_ms=kernel_ms))
 
   # The same group with render snapshots.
   got_s, ms = timed(lambda: step_cuda.group_tick(env, acts, cfg,
@@ -315,7 +349,7 @@ def main():
       name='group_tick_snaps', source='crafter_tpu_torch/csrc/group_tick.cu',
       replaces='crafter_tpu/step.py:1373', max_abs_err=err, ms=ms,
       plain_ms=plain_ms, bytes=group_bytes + snap_bytes, ops=group_ops,
-      library_ms=None, snapshots=True))
+      library_ms=None, device_ms=kernel_ms_s))
   del got_s, ref_s
 
   # One tick.
@@ -324,8 +358,8 @@ def main():
   kernel_ms_t = device_ms(lambda: step_cuda.tick(env, acts[0], sp, sm, cfg),
                           'tick_kernel')
   print(f'group and tick kernels on the device alone (profiler): group '
-        f'{kernel_ms:.3f} ms, with snapshots {kernel_ms_s:.3f} ms, tick '
-        f'{kernel_ms_t:.3f} ms (with the wrapper: {rows[0]["ms"]:.3f}, '
+        f'{dev_str(kernel_ms)}, with snapshots {dev_str(kernel_ms_s)}, tick '
+        f'{dev_str(kernel_ms_t)} (with the wrapper: {rows[0]["ms"]:.3f}, '
         f'{rows[1]["ms"]:.3f}, {ms:.3f} ms)', flush=True)
   tref, plain_ms = timed(lambda: step_lib.tick_plain(env, acts[0], sp, sm,
                                                      cfg), 2)
@@ -341,7 +375,7 @@ def main():
       bytes=N_ENVS * c * (6 + 6) + 2 * N_ENVS * step_cuda.REC * 4
       + 3 * N_ENVS * 4,
       ops=active_entities(env) * OPS_TICK_ACTIVE + N_ENVS * OPS_TICK_PLAYER,
-      library_ms=None))
+      library_ms=None, device_ms=kernel_ms_t))
   del tk, tref
 
   # Both tick kernels on states packed with entities (tests/dense_states.py:
@@ -393,6 +427,8 @@ def main():
   occ = got[2]
   s_bal = step_lib.tick_seeds(got[0].key, got[0].step)[2]
   bal, ms = timed(lambda: step_cuda.balance(got[0], s_bal, occ, cfg), 5)
+  bal_dev_ms = device_ms(lambda: step_cuda.balance(got[0], s_bal, occ, cfg),
+                         'balance_kernel')
   bref, plain_ms = timed(
       lambda: step_lib.balance_plain(got[0], s_bal, occ, cfg), 2)
   err = max(max_err(bal, bref, 'balance'),
@@ -410,37 +446,64 @@ def main():
       name='balance', source='crafter_tpu_torch/csrc/balance.cu',
       replaces='crafter_tpu/step.py:1114', max_abs_err=err, ms=ms,
       plain_ms=plain_ms, bytes=N_ENVS * c * (6 + 4) + N_ENVS * (2 * nch + 16),
-      ops=N_ENVS * c * OPS_BALANCE_CELL, library_ms=None))
+      ops=N_ENVS * c * OPS_BALANCE_CELL, library_ms=None,
+      device_ms=bal_dev_ms))
 
+  # The 2-D noise in both forms: the shared form (the channels' points
+  # once, a seed a world and channel), which worldgen calls, at the shapes
+  # of the paths (a reset pass of 320 worlds, a chunk of vec_reset_chunked,
+  # the per-tick reset pass of 32), and the per-point form at 320 worlds.
+  shared_pts = worldgen.channel_points(cfg, dev).reshape(
+      len(worldgen.CHANNELS), c, 2)
+  for worlds in NOISE_WORLDS:
+    keys = ct.prng.fold_in(ct.home_keys(2, worlds, dev), 2)
+    row_seeds = worldgen.noise_seeds(keys)
+    nz, ms = timed(lambda: noise_cuda.noise2(shared_pts, row_seeds), 10)
+    dev_ms = device_ms(lambda: noise_cuda.noise2(shared_pts, row_seeds),
+                       'noise2_shared_kernel')
+    nref, plain_ms = timed(lambda: noise.noise2_shared(shared_pts,
+                                                       row_seeds), 2)
+    err = (nz - nref).abs().max().item()
+    ndiff = int((nz != nref).sum())
+    pts, seeds = worldgen.noise_inputs(keys, cfg)
+    flat, flat_ms = timed(lambda: noise_cuda.noise2(pts, seeds), 10)
+    flat_dev_ms = device_ms(lambda: noise_cuda.noise2(pts, seeds),
+                            'noise2_kernel')
+    flat_err = (flat - nz.reshape(-1)).abs().max().item()
+    wk = worldgen.generate_world(keys, cfg)
+    wp = worldgen.generate_world(keys, dataclasses.replace(cfg,
+                                                           noise_mode='fast'))
+    flips = int((wk.mat_map != wp.mat_map).sum())
+    print(f'noise2 at {worlds} worlds: shared form {ms:.3f} ms (device '
+          f'{dev_str(dev_ms)}), per-point form {flat_ms:.3f} ms (device '
+          f'{dev_str(flat_dev_ms)}); {ndiff} of {nz.numel()} values differ '
+          f'from the twin, max |diff| {err}, the forms differ by {flat_err}; '
+          f'{flips} materials flipped', flush=True)
+    if (err > NOISE_ATOL or flat_err > NOISE_ATOL or flips != 0
+        or max_err(wk, wp, 'worldgen') != 0):
+      fail(f'noise2 disagrees with its twin at {worlds} worlds')
+    # The same worlds made on the CPU, where the tests hold them against the
+    # reference: every leaf must be equal (the float32 math of the material
+    # cascade gives the same bits on both devices).
+    if worlds != 512:
+      wc = worldgen.generate_world(keys.cpu(), cfg)
+      if max_err(wk, wc, 'worldgen card vs CPU') != 0:
+        fail(f'{worlds} worlds made on the card differ from the CPU\'s')
+      print(f'worldgen: {worlds} worlds on the card == on the CPU',
+            flush=True)
+      del wc
+    p = nz.numel()
+    rows.append(dict(
+        name='noise2' if worlds == RESET_BATCH else f'noise2_{worlds}',
+        source='crafter_tpu_torch/csrc/noise2.cu',
+        replaces='crafter_tpu/ops/noise_pallas.py:99', max_abs_err=err,
+        ms=ms, plain_ms=plain_ms,
+        bytes=p * 4 + shared_pts.numel() * 4 + row_seeds.numel() * 4,
+        ops=p * OPS_NOISE_POINT, library_ms=None, device_ms=dev_ms,
+        worlds=worlds))
+    del nz, nref, wk, wp, pts, seeds, flat
   keys = ct.prng.fold_in(ct.home_keys(2, RESET_BATCH, dev), 2)
-  pts, seeds = worldgen.noise_inputs(keys, cfg)
-  nz, ms = timed(lambda: noise_cuda.noise2(pts, seeds), 10)
-  nref, plain_ms = timed(lambda: noise.noise2_fast(pts, seeds), 2)
-  err = (nz - nref).abs().max().item()
-  ndiff = int((nz != nref).sum())
-  wk = worldgen.generate_world(keys, cfg)
-  wp = worldgen.generate_world(keys, dataclasses.replace(cfg,
-                                                         noise_mode='fast'))
-  flips = int((wk.mat_map != wp.mat_map).sum())
-  print(f'noise2: {ndiff} of {nz.numel()} values differ, max |diff| {err}, '
-        f'{flips} materials flipped', flush=True)
-  if err > NOISE_ATOL or flips != 0 or max_err(wk, wp, 'worldgen') != 0:
-    fail('noise2 disagrees with noise2_fast')
-  # The same worlds made on the CPU, where the tests hold them against the
-  # reference: every leaf must be equal (the float32 math of the material
-  # cascade gives the same bits on both devices).
-  wc = worldgen.generate_world(keys.cpu(), cfg)
-  if max_err(wk, wc, 'worldgen card vs CPU') != 0:
-    fail(f'{RESET_BATCH} worlds made on the card differ from the CPU\'s')
-  print(f'worldgen: {RESET_BATCH} worlds on the card == on the CPU',
-        flush=True)
-  p = pts.shape[0]
-  rows.append(dict(
-      name='noise2', source='crafter_tpu_torch/csrc/noise2.cu',
-      replaces='crafter_tpu/ops/noise_pallas.py:99', max_abs_err=err, ms=ms,
-      plain_ms=plain_ms, bytes=p * (8 + 4 + 4), ops=p * OPS_NOISE_POINT,
-      library_ms=None))
-  del got, ref, bal, bref, nz, nref, wk, wp, wc, pts, seeds
+  del got, ref, bal, bref
 
   # The render kernel on one pixel group's frames (K * N): the stepped
   # worlds under players spread over the whole map (a share of them within
@@ -466,14 +529,20 @@ def main():
   if not (n_night and n_sleep and n_edge):
     fail('the render check needs night, sleeping and edge frames')
   del packed
-  frames, ms = timed(lambda: render_cuda.render_win79(
-      win79, light, sleeping, seeds, atlas, cfg.size, 'frames'), 5)
+  render = lambda n, fmt, inst='auto': render_cuda.render_win79(
+      win79[:n], light[:n], sleeping[:n], seeds[:n], atlas, cfg.size, fmt,
+      instantiation=inst)
+  frames, ms = timed(lambda: render(b, 'frames'), 5)
+  dev_ms = device_ms(lambda: render(b, 'frames'), 'render_kernel')
   # The per-tick path and the training rollout render one frame an env.
-  _, ms_tick = timed(lambda: render_cuda.render_win79(
-      win79[:N_ENVS], light[:N_ENVS], sleeping[:N_ENVS], seeds[:N_ENVS],
-      atlas, cfg.size, 'frames'), 5)
-  lanes, packed_ms = timed(lambda: render_cuda.render_win79(
-      win79, light, sleeping, seeds, atlas, cfg.size, 'packed'), 5)
+  frames_tick, ms_tick = timed(lambda: render(N_ENVS, 'frames'), 5)
+  dev_ms_tick = device_ms(lambda: render(N_ENVS, 'frames'), 'render_kernel')
+  lanes, packed_ms = timed(lambda: render(b, 'packed'), 5)
+  # The instantiation that reads the tables from global memory, on the
+  # same frames.
+  frames_g, ms_g = timed(lambda: render(b, 'frames', 'global'), 5)
+  dev_ms_g = device_ms(lambda: render(b, 'frames', 'global'),
+                       'render_kernel')
   # The twin in chunks (its intermediates are (B, P) planes), timed alone.
   bad_px = torch.zeros((), dtype=torch.int64, device=dev)
   worst = torch.zeros((), dtype=torch.int16, device=dev)   # in colour levels
@@ -486,36 +555,67 @@ def main():
                                          seeds[j], atlas)
     spans[-1][1].record()
     image = render_lib.frame_image(want, cfg.size)
-    bad_px += (lanes[j] != want).sum() + (frames[j] != image).sum()
-    for got_px in (frames[j], render_lib.frame_image(lanes[j], cfg.size)):
+    bad_px += ((lanes[j] != want).sum() + (frames[j] != image).sum()
+               + (frames_g[j] != image).sum())
+    for got_px in (frames[j], frames_g[j],
+                   render_lib.frame_image(lanes[j], cfg.size)):
       worst = torch.maximum(worst, (got_px.to(torch.int16)
                                     - image.to(torch.int16)).abs().max())
+    if i == 0:
+      bad_px += (frames_tick != image).sum()
   torch.cuda.synchronize()
   plain_ms = sum(t0.elapsed_time(t1) for t0, t1 in spans)
   err = float(worst)
   print(f'render_win79: packed output {packed_ms:.3f} ms, frames output '
-        f'{ms:.3f} ms ({N_ENVS} frames: {ms_tick:.3f} ms), {int(bad_px)} '
-        f'values differ from the twin, max |diff| {err}', flush=True)
+        f'{ms:.3f} ms (device {dev_str(dev_ms)}; {N_ENVS} frames: '
+        f'{ms_tick:.3f} ms, device {dev_str(dev_ms_tick)}); the global '
+        f'instantiation {ms_g:.3f} ms (device {dev_str(dev_ms_g)}); '
+        f'{int(bad_px)} values differ from the twin, max |diff| {err}',
+        flush=True)
   if int(bad_px) != 0 or err != 0:
     fail('render_win79 disagrees with render_win79_plain')
+  del frames_g, frames_tick
+  # A size whose tables do not fit in shared memory: the global
+  # instantiation, which 'auto' picks there.
+  big = ct.bake_atlas(RENDER_BIG, cfg.view, cfg.item_rows, dev)
+  nb = RENDER_BIG_FRAMES
+  args = (win79[:nb], light[:nb], sleeping[:nb], seeds[:nb], big)
+  big_frames, ms_big = timed(lambda: render_cuda.render_win79(
+      *args, RENDER_BIG, 'frames'), 3)
+  dev_ms_big = device_ms(lambda: render_cuda.render_win79(
+      *args, RENDER_BIG, 'frames'), 'render_kernel')
+  want_big = render_lib.frame_image(render_lib.render_win79_plain(*args),
+                                    RENDER_BIG)
+  bad_big = int((big_frames != want_big).sum())
+  print(f'render_win79 at {RENDER_BIG[0]}x{RENDER_BIG[1]}, {nb} frames '
+        f'(global tables): {ms_big:.3f} ms (device {dev_str(dev_ms_big)}), '
+        f'{bad_big} bytes differ from the twin', flush=True)
+  if bad_big:
+    fail(f'render_win79 at {RENDER_BIG} disagrees with render_win79_plain')
+  del big, big_frames, want_big, args
   pix = atlas.src.shape[0]
   lit_pix = int(atlas.view_mask.sum())
-  table_bytes = sum(t.numel() * t.element_size() for _, t in leaves(atlas))
+  table_bytes = sum(t.numel() * t.element_size()
+                    for _, t in leaves(atlas.compact))
   render_bytes = lambda frames: (frames * (win79.shape[1] * 4 + 12)
                                  + table_bytes + frames * pix * 3)
   render_ops = lambda frames, night: (
       frames * (pix * OPS_RENDER_TEXEL + lit_pix * OPS_RENDER_LIGHT)
       + night * lit_pix * OPS_RENDER_NOISE)
   night_tick = int((light[:N_ENVS] < 0.5).sum())
-  bound_tick = max(render_bytes(N_ENVS) / HBM_BYTES_PER_S,
-                   render_ops(N_ENVS, night_tick) / CORE_OPS_PER_S) * 1e3
   print(f'render_win79 at {N_ENVS} frames ({night_tick} at night): '
-        f'{ms_tick:.3f} ms, bound {bound_tick:.4f} ms', flush=True)
+        f'{ms_tick:.3f} ms', flush=True)
   rows.append(dict(
       name='render_win79', source='crafter_tpu_torch/csrc/render.cu',
       replaces='crafter_tpu/render.py:567', max_abs_err=err, ms=ms,
       plain_ms=plain_ms, bytes=render_bytes(b), ops=render_ops(b, n_night),
-      library_ms=None))
+      library_ms=None, device_ms=dev_ms))
+  rows.append(dict(
+      name='render_win79_4096', source='crafter_tpu_torch/csrc/render.cu',
+      replaces='crafter_tpu/render.py:567', max_abs_err=err, ms=ms_tick,
+      plain_ms=sum(t0.elapsed_time(t1) for t0, t1 in spans[:1]),
+      bytes=render_bytes(N_ENVS), ops=render_ops(N_ENVS, night_tick),
+      library_ms=None, device_ms=dev_ms_tick))
   del frames, lanes, win79, want, image, got_px, env, vs
   torch.cuda.empty_cache()
 
@@ -531,6 +631,8 @@ def main():
   world_seed = ct.prng.randint(ct.prng.split(keys, 3)[:, 0], 0, 2 ** 31 - 1)
   seeds3 = world_seed[:, None, None].expand(pts3.shape[:-1]).contiguous()
   nz, ms = timed(lambda: noise_cuda.noise3(pts3, seeds3), 10)
+  n3_dev_ms = device_ms(lambda: noise_cuda.noise3(pts3, seeds3),
+                        'noise3_kernel')
   nref, plain_ms = timed(lambda: noise.noise3_fast(pts3, seeds3), 2)
   err = (nz - nref).abs().max().item()
   ndiff = int((nz != nref).sum())
@@ -547,7 +649,7 @@ def main():
       name='noise3', source='crafter_tpu_torch/csrc/noise3.cu',
       replaces='crafter_tpu/ops/noise_pallas.py:134', max_abs_err=err, ms=ms,
       plain_ms=plain_ms, bytes=p3 * (12 + 4 + 4), ops=p3 * OPS_NOISE3_POINT,
-      library_ms=None))
+      library_ms=None, device_ms=n3_dev_ms))
   del pts2, pts3, seeds3, nz, nref, keys
 
   # The roll micro-bench kernel on its rows, all three kinds at 10 and 40
@@ -579,6 +681,8 @@ def main():
         fail(f'roll_stages({roll_kind}, {stages}) disagrees with its plain '
              'twin')
   _, lib_ms = timed(lambda: torch.roll(x, -1, dims=1), 3)
+  roll_dev_ms = device_ms(lambda: roll_cuda.roll_stages(x, 'roll', 10),
+                          'roll_kernel', 3)
   stage_us = lambda name: (roll_ms[name, 40][0] - roll_ms[name, 10][0]) \
       / 30 * 1e3
   print(f'roll: one torch.roll of the rows {lib_ms:.3f} ms; a roll stage '
@@ -588,7 +692,8 @@ def main():
       name='roll', source='crafter_tpu_torch/csrc/roll.cu',
       replaces='tools/bench_roll.py:23', max_abs_err=0.0,
       ms=roll_ms['roll', 10][0], plain_ms=roll_ms['roll', 10][1],
-      bytes=2 * x.numel() * 4, ops=10 * x.numel(), library_ms=None))
+      bytes=2 * x.numel() * 4, ops=10 * x.numel(), library_ms=None,
+      device_ms=roll_dev_ms))
   del x, got_x, want_x
   torch.cuda.empty_cache()
 
@@ -601,9 +706,14 @@ def main():
   def zero_counts():
     for fn in wrappers.values():
       fn.launches = 0
+    noise_cuda.noise2.launches_by_rows = {}
 
   def read_counts(path, needed):
     counts = {name: fn.launches for name, fn in wrappers.items()}
+    # The noise kernel's launches by shape, as its wrapper counts them.
+    for worlds in NOISE_WORLDS:
+      counts[f'noise2_rows_{worlds}'] = \
+          noise_cuda.noise2.launches_by_rows.get(worlds, 0)
     for name in needed:
       if counts[name] == 0:
         fail(f'kernel {name} was not launched on the {path} path')
@@ -993,17 +1103,23 @@ def main():
   if int(ts_b.vec.episode.sum()) == 64:
     fail('checkpoint: no episode ended after the round trip')
 
+  paths = (state_counts, pixel_counts, tick_counts, ppo_counts)
   launches = {
       'group_tick': state_counts['group_tick'],
       'group_tick_snaps': pixel_counts['group_tick'],
       'tick': tick_counts['tick'] + ppo_counts['tick'],
-      'balance': sum(cn['balance'] for cn in (state_counts, pixel_counts,
-                                              tick_counts, ppo_counts)),
-      'noise2': sum(cn['noise2'] for cn in (state_counts, pixel_counts,
-                                            tick_counts, ppo_counts)),
-      'render_win79': pixel_counts['render_win79']
-      + tick_counts['render_win79'] + ppo_counts['render_win79'],
+      'balance': sum(cn['balance'] for cn in paths),
+      'render_win79': pixel_counts['render_win79'],
+      'render_win79_4096': tick_counts['render_win79']
+      + ppo_counts['render_win79'],
       'noise3': tool_counts['noise3'], 'roll': tool_counts['roll']}
+  for worlds in NOISE_WORLDS:
+    name = 'noise2' if worlds == RESET_BATCH else f'noise2_{worlds}'
+    launches[name] = sum(cn[f'noise2_rows_{worlds}'] for cn in paths)
+  other = sum(cn['noise2'] for cn in paths) - sum(
+      launches[name] for name in launches if name.startswith('noise2'))
+  if other:
+    fail(f'{other} noise2 launches at a shape the table does not list')
   kernels = []
   for row in rows:
     bound_bytes = row.pop('bytes') / HBM_BYTES_PER_S * 1e3
@@ -1013,12 +1129,15 @@ def main():
                bound_by='bytes' if bound_bytes >= bound_ops else 'operations')
     kernels.append({key: row[key] for key in (
         'name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
-        'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')})
-    print(f'{row["name"]} on {card}: {row["ms"]:.3f} ms (plain '
-          f'{row["plain_ms"]:.3f} ms, bound {row["bound_ms"]:.4f} ms by '
-          f'{row["bound_by"]}), {row["launches"]} launches on the paths, '
-          f'launches x (ms - bound) '
-          f'{row["launches"] * (row["ms"] - row["bound_ms"]):.1f} ms')
+        'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'device_ms')})
+    dev = row['device_ms']
+    gap = '' if dev is None else (
+        f', launches x (device ms - bound) '
+        f'{row["launches"] * (dev - row["bound_ms"]):.1f} ms')
+    print(f'{row["name"]} on {card}: {row["ms"]:.3f} ms, device '
+          f'{dev_str(dev)} (plain {row["plain_ms"]:.3f} ms, bound '
+          f'{row["bound_ms"]:.4f} ms by {row["bound_by"]}), '
+          f'{row["launches"]} launches on the paths{gap}')
   print(json.dumps({
       'kernels': kernels, 'card': card,
       'env_steps_per_s': {'state_only': sps, 'pixel': pixel_sps,

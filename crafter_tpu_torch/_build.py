@@ -104,19 +104,24 @@ def library() -> ctypes.CDLL:
     vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_float)
     lib.crafter_noise2.argtypes = [vp, vp, vp, i64, f32, f32, f32, vp]
+    lib.crafter_noise2_shared.argtypes = ([vp] * 3 + [i32] * 3 + [f32] * 3
+                                          + [vp])
     lib.crafter_noise3.argtypes = [vp, vp, i32, vp, i64, f32, f32, f32, vp]
     lib.crafter_roll.argtypes = [vp, vp, i64, i32, i32, vp]
     lib.crafter_group_tick.argtypes = [vp] * 24 + [i32] * 6 + [vp]
     lib.crafter_tick.argtypes = [vp] * 16 + [i32] * 4 + [vp]
     lib.crafter_tick_occupancy.argtypes = [i32] * 4 + [ctypes.POINTER(i32)] * 2
-    lib.crafter_render.argtypes = ([vp] * 5 + [i32, vp, i32] + [vp] * 4
-                                   + [i32] * 4 + [vp])
+    lib.crafter_render.argtypes = ([vp] * 5 + [i32, vp, i32, vp] + [i32] * 3
+                                   + [vp] * 3 + [i32] * 5 + [vp])
+    lib.crafter_render_occupancy.argtypes = ([i32] * 5
+                                             + [ctypes.POINTER(i32)] * 2)
     lib.crafter_balance.argtypes = [vp] * 14 + [i32] * 7 + [vp]
     lib.crafter_error_string.argtypes = [i32]
     lib.crafter_error_string.restype = ctypes.c_char_p
-    for fn in ('crafter_noise2', 'crafter_noise3', 'crafter_roll',
-               'crafter_group_tick', 'crafter_tick', 'crafter_tick_occupancy',
-               'crafter_balance', 'crafter_render'):
+    for fn in ('crafter_noise2', 'crafter_noise2_shared', 'crafter_noise3',
+               'crafter_roll', 'crafter_group_tick', 'crafter_tick',
+               'crafter_tick_occupancy', 'crafter_balance', 'crafter_render',
+               'crafter_render_occupancy'):
       getattr(lib, fn).restype = i32
     _lib = lib
   return _lib

@@ -12,6 +12,9 @@ jitted JAX functions bit for bit:
 * the division by the normaliser is a multiply by its float32 reciprocal,
   which is what XLA makes of a division by a constant.
 
+:func:`noise2_shared` is the twin of the 2-D kernel's shared form (points
+once a channel, a seed a row and channel), which worldgen calls.
+
 Where the fusions of the 3-D sum sit was read off XLA's optimised code for
 ``jax.jit(noise3_fast)`` (see :func:`noise3_fast`).
 """
@@ -75,6 +78,16 @@ def noise2_fast(points: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
     grad = fma32(gx.to(torch.float32), dx, gy * dy)
     total = fma32(attn2 * attn2, grad, total)
   return (total * F32_INV_NORM).reshape(shape)
+
+
+def noise2_shared(points: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:
+  """:func:`noise2_fast` on points shared by every row: ``points`` (K, P, 2)
+  float32 (one point set a channel), ``seeds`` (R, K) int32 (one seed a row
+  and channel).  Returns (R, K, P) float32: the points and seeds expanded
+  to every (row, channel, point), then :func:`noise2_fast`."""
+  r, k = seeds.shape
+  pts = points[None].expand(r, -1, -1, -1)
+  return noise2_fast(pts, seeds[:, :, None].expand(-1, -1, points.shape[1]))
 
 
 STRETCH_3D = -1.0 / 6.0

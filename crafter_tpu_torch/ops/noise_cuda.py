@@ -16,38 +16,63 @@ from . import noise
 
 
 def noise2(points: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:
-  """Noise at ``points`` (P, 2) float32 with per-point int32 ``seeds`` (P,).
-  Returns (P,) float32."""
-  if (points.ndim != 2 or points.shape[1] != 2
-      or seeds.shape != points.shape[:1]):
+  """Noise at ``points`` (P, 2) float32 with per-point int32 ``seeds`` (P,),
+  returning (P,) float32; or, in the shared form, at ``points`` (K, P, 2)
+  shared by every row with ``seeds`` (R, K), returning (R, K, P)."""
+  shared = points.ndim == 3
+  if shared:
+    if (points.shape[2] != 2 or seeds.ndim != 2
+        or seeds.shape[1] != points.shape[0]):
+      raise ValueError(f'points {tuple(points.shape)} / seeds '
+                       f'{tuple(seeds.shape)}: want (K, P, 2) and (R, K)')
+  elif (points.ndim != 2 or points.shape[1] != 2
+        or seeds.shape != points.shape[:1]):
     raise ValueError(f'points {tuple(points.shape)} / seeds '
                      f'{tuple(seeds.shape)}: want (P, 2) and (P,)')
   if not points.is_cuda:
-    return noise.noise2_fast(points, seeds)
-  out = _launch_noise2(points, seeds)
+    return (noise.noise2_shared if shared else noise.noise2_fast)(points,
+                                                                  seeds)
+  out = _launch_noise2(points, seeds, shared)
   noise2.launches += 1
+  if shared:
+    worlds = seeds.shape[0]
+    noise2.launches_by_rows[worlds] = noise2.launches_by_rows.get(worlds,
+                                                                  0) + 1
   return out
 
 
 noise2.launches = 0
+# Shared-form launches by the number of rows (worlds) of the call.
+noise2.launches_by_rows = {}
 
 
 def _stream(t: torch.Tensor) -> int:
   return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _launch_noise2(points: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:
+def _launch_noise2(points: torch.Tensor, seeds: torch.Tensor,
+                   shared: bool) -> torch.Tensor:
   if points.dtype != torch.float32 or seeds.dtype != torch.int32:
     raise TypeError('noise2 takes float32 points and int32 seeds')
   if seeds.device != points.device:
     raise ValueError('points and seeds must be on one device')
   pts = points.contiguous()
   sd = seeds.contiguous()
-  out = torch.empty(pts.shape[0], dtype=torch.float32, device=pts.device)
   lib = _build.library()
+  consts = (noise.F32_STRETCH, noise.F32_SQUISH, noise.F32_INV_NORM)
+  if shared:
+    if pts.data_ptr() % 16:
+      raise ValueError('noise2: the shared points must be 16-byte aligned')
+    k, p, _ = pts.shape
+    out = torch.empty((sd.shape[0], k, p), dtype=torch.float32,
+                      device=pts.device)
+    _build.check(lib.crafter_noise2_shared(
+        pts.data_ptr(), sd.data_ptr(), out.data_ptr(), sd.numel(), k, p,
+        *consts, _stream(pts)), 'noise2')
+    return out
+  out = torch.empty(pts.shape[0], dtype=torch.float32, device=pts.device)
   _build.check(lib.crafter_noise2(
-      pts.data_ptr(), sd.data_ptr(), out.data_ptr(), pts.shape[0],
-      noise.F32_STRETCH, noise.F32_SQUISH, noise.F32_INV_NORM,
+      pts.data_ptr(), sd.data_ptr(), out.data_ptr(), pts.shape[0], *consts,
       _stream(pts)), 'noise2')
   return out
 

@@ -9,7 +9,11 @@ is baked once per render size into the :class:`Atlas`.
 
 * :func:`bake_atlas` bakes the tables with numpy from the decoded textures
   of ``assets/textures.npz`` (no PIL, no imageio: the nearest-neighbour
-  resize is PIL's, reproduced), equal to the JAX package's tables.
+  resize is PIL's, reproduced), equal to the JAX package's tables, and
+  their compact form (:class:`CompactTables`: each texture once and a code
+  word a pixel), which the render kernel reads; :func:`expand_compact`
+  rebuilds the planes from it and :func:`render_win79_compact` renders
+  through it as the kernel does.
 * :func:`window_prep` gathers the 79 values of each frame.
 * :func:`render_win79_plain` is the plain twin of the render kernel
   (``render_cuda.render_win79`` / ``csrc/render.cu``): the trace of the JAX
@@ -59,6 +63,14 @@ ENT_TEX_NAMES = (
 
 GRAY_ID = rules.N_MATERIALS  # out-of-bounds tile: the 127-gray canvas
 NOISE_SCALE = float(np.float32(95.0 / (1 << 24)))
+# The desaturation's 0.4, as the float32 constant XLA multiplies by.
+DESAT = float(np.float32(0.4))
+# Inventory amounts with a tile of their own (0..9; larger are clipped).
+N_AMOUNTS = 10
+# A pixel's code word in the compact tables: source index + 1 in bits 0..7
+# (0: none), the view bit, and the texel offset above it.
+CODE_VIEW_BIT = 8
+CODE_OFF_SHIFT = 9
 
 
 @dataclasses.dataclass
@@ -77,6 +89,28 @@ class Atlas:
   #                           this pixel shows, -1 where none (reads id 0)
   vignette: torch.Tensor    # (1, C) float32 night vignette (0 off the view)
   view_mask: torch.Tensor   # (1, C) int32 0/1: pixels the lighting applies to
+  compact: 'CompactTables | None' = None  # the render kernel's form of the
+  #                                        same tables
+
+
+@dataclasses.dataclass
+class CompactTables:
+  """The atlas as the render kernel reads it: every texture once, ``T`` =
+  ux * uy texels a tile, and a word a pixel.
+
+  Inside the view, material plane ``k`` of the atlas is one tile texture
+  repeated over the view tiles; in the item strip it is the tile of (slot,
+  amount ``k``).  :func:`expand_compact` rebuilds the atlas's planes from
+  these tables.
+  """
+
+  mat_tex: torch.Tensor   # (N_MATERIALS+1, T) int32 r|g<<8|b<<16
+  spr_tex: torch.Tensor   # (15, T) int32 r|g<<8|b<<16|a<<24 (row 0 empty)
+  item_tex: torch.Tensor  # (N_ITEMS, N_AMOUNTS, T) int32 r|g<<8|b<<16
+  code: torch.Tensor      # (C,) int32 (src + 1) | view << 8 | off << 9: off
+  #                         is the texel in the tile (view) or the offset of
+  #                         the texel at amount 0 in item_tex (strip)
+  vignette: torch.Tensor  # (C,) float32, 0 off the view
 
 
 @functools.lru_cache(maxsize=None)
@@ -136,9 +170,11 @@ def _vignette(shape: Tuple[int, int], stddev: float) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=8)
-def _bake_tables(size: Tuple[int, int], view: Tuple[int, int],
-                 item_rows: int) -> dict:
-  """The atlas tables as numpy arrays (``crafter_tpu/render.py:139-239``)."""
+def _bake_parts(size: Tuple[int, int], view: Tuple[int, int],
+                item_rows: int) -> dict:
+  """The textures resized to one tile and each pixel's place in the layout
+  (``crafter_tpu/render.py:139-239``): what both the atlas's per-pixel
+  planes and the render kernel's compact tables are made of."""
   ux, uy = size[0] // view[0], size[1] // view[1]
   gw, gh = view[0], view[1] - item_rows
   wpix, hpix = size
@@ -166,17 +202,17 @@ def _bake_tables(size: Tuple[int, int], view: Tuple[int, int],
   # Inventory tiles: icon at 0.8*unit offset 0.1*unit, count digit at
   # 0.6*unit offset 0.4*unit, zero amounts blank (engine.py:227-248).
   unit = np.array([ux, uy])
-  item_tiles = np.zeros((rules.N_ITEMS, 10, ux, uy, 3), np.uint8)
+  item_tiles = np.zeros((rules.N_ITEMS, N_AMOUNTS, ux, uy, 3), np.uint8)
   for i, name in enumerate(rules.ITEMS):
     icon = _resize(_load(name), tuple((0.8 * unit).astype(int)))
-    for amount in range(1, 10):
+    for amount in range(1, N_AMOUNTS):
       tile = np.zeros((ux, uy, 3), np.uint8)
       _draw_alpha(tile, (0.1 * unit).astype(int), icon)
       digit = _resize(_load(str(amount)), tuple((0.6 * unit).astype(int)))
       _draw_alpha(tile, (0.4 * unit).astype(int), digit)
       item_tiles[i, amount] = tile
 
-  # Per-pixel planes, row-major (y, x) like the output frame: the
+  # Per-pixel places, row-major (y, x) like the output frame: the
   # reference's final transpose (env.py:130) is baked into the layout.
   ys, xs = np.divmod(np.arange(c), wpix)     # ys = row, xs = col
   r_view = ys - by
@@ -193,22 +229,6 @@ def _bake_tables(size: Tuple[int, int], view: Tuple[int, int],
   py_s = np.clip(r_strip % uy, 0, uy - 1)
   item = np.clip(r_strip // uy, 0, item_rows - 1) * gw + tx  # engine.py:238
   item_ok = in_strip & (item < rules.N_ITEMS)
-
-  pk3 = lambda t: (t[..., 0].astype(np.int64) | (t[..., 1].astype(np.int64)
-                   << 8) | (t[..., 2].astype(np.int64) << 16))
-  mat_planes = np.zeros((n_mat, c), np.int64)
-  for k in range(n_mat):
-    mat_planes[k][in_view] = pk3(mat_tex[k][px, py_v])[in_view]
-    if k < 10:
-      mat_planes[k][item_ok] = pk3(
-          item_tiles[np.clip(item, 0, rules.N_ITEMS - 1), k, px, py_s]
-      )[item_ok]
-  spr_planes = np.zeros((len(ENT_TEX_NAMES), c), np.int64)
-  for k in range(1, len(ENT_TEX_NAMES)):
-    spr_planes[k][in_view] = (
-        pk3(spr_tex[k][px, py_v])
-        | (spr_tex[k][px, py_v, 3].astype(np.int64) << 24))[in_view]
-
   # Pixel <- its view tile (x-major, the window's flatten order) or its
   # strip item slot; -1 where the pixel shows neither.
   src = np.where(in_view, tx * gh + ty,
@@ -217,24 +237,121 @@ def _bake_tables(size: Tuple[int, int], view: Tuple[int, int],
   vig = np.zeros((c,), np.float32)
   vig_view = _vignette((gw * ux, gh * uy), 0.5).astype(np.float32).T
   vig[in_view] = vig_view[r_view[in_view], c_view[in_view]]
+  return dict(mat_tex=mat_tex, spr_tex=spr_tex, item_tiles=item_tiles,
+              in_view=in_view, item_ok=item_ok,
+              item=np.clip(item, 0, rules.N_ITEMS - 1), px=px, py_v=py_v,
+              py_s=py_s, src=src, vig=vig)
 
-  i32 = lambda a: (a & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
-  return dict(mat_planes=i32(mat_planes), spr_planes=i32(spr_planes),
-              src=src.astype(np.int32), vignette=vig.reshape(1, c),
+
+def _pk3(t: np.ndarray) -> np.ndarray:
+  """(..., 3) uint8 -> (...) int64 r | g<<8 | b<<16."""
+  return (t[..., 0].astype(np.int64) | (t[..., 1].astype(np.int64) << 8)
+          | (t[..., 2].astype(np.int64) << 16))
+
+
+def _pk4(t: np.ndarray) -> np.ndarray:
+  """(..., 4) uint8 -> (...) int64 r | g<<8 | b<<16 | a<<24."""
+  return _pk3(t) | (t[..., 3].astype(np.int64) << 24)
+
+
+def _i32(a: np.ndarray) -> np.ndarray:
+  return (a & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+
+
+@functools.lru_cache(maxsize=8)
+def _bake_tables(size: Tuple[int, int], view: Tuple[int, int],
+                 item_rows: int) -> dict:
+  """The atlas tables as numpy arrays (``crafter_tpu/render.py:139-239``)."""
+  parts = _bake_parts(size, view, item_rows)
+  mat_tex, spr_tex, item_tiles = (parts['mat_tex'], parts['spr_tex'],
+                                  parts['item_tiles'])
+  in_view, item_ok, item = parts['in_view'], parts['item_ok'], parts['item']
+  px, py_v, py_s = parts['px'], parts['py_v'], parts['py_s']
+  c = in_view.shape[0]
+  n_mat = mat_tex.shape[0]
+  mat_planes = np.zeros((n_mat, c), np.int64)
+  for k in range(n_mat):
+    mat_planes[k][in_view] = _pk3(mat_tex[k][px, py_v])[in_view]
+    if k < N_AMOUNTS:
+      mat_planes[k][item_ok] = _pk3(item_tiles[item, k, px, py_s])[item_ok]
+  spr_planes = np.zeros((len(ENT_TEX_NAMES), c), np.int64)
+  for k in range(1, len(ENT_TEX_NAMES)):
+    spr_planes[k][in_view] = _pk4(spr_tex[k][px, py_v])[in_view]
+  return dict(mat_planes=_i32(mat_planes), spr_planes=_i32(spr_planes),
+              src=parts['src'].astype(np.int32),
+              vignette=parts['vig'].reshape(1, c),
               view_mask=in_view.astype(np.int32).reshape(1, c))
 
 
 @functools.lru_cache(maxsize=8)
+def _bake_compact(size: Tuple[int, int], view: Tuple[int, int],
+                  item_rows: int) -> dict:
+  """The render kernel's tables (:class:`CompactTables`) as numpy arrays:
+  each texture once, and one code word and the vignette a pixel."""
+  parts = _bake_parts(size, view, item_rows)
+  mat_tex, spr_tex, item_tiles = (parts['mat_tex'], parts['spr_tex'],
+                                  parts['item_tiles'])
+  in_view, item_ok, item = parts['in_view'], parts['item_ok'], parts['item']
+  px, py_v, py_s = parts['px'], parts['py_v'], parts['py_s']
+  uy = mat_tex.shape[2]
+  texels = mat_tex.shape[1] * uy
+  # A view pixel's texel in its tile; a strip pixel's offset into the item
+  # table at amount 0 (its slot's row, then its texel).
+  off = np.where(in_view, px * uy + py_v,
+                 np.where(item_ok, item * N_AMOUNTS * texels + px * uy + py_s,
+                          0))
+  code = (parts['src'] + 1) | (in_view.astype(np.int64) << CODE_VIEW_BIT) \
+      | (off << CODE_OFF_SHIFT)
+  return dict(
+      mat_tex=_i32(_pk3(mat_tex).reshape(mat_tex.shape[0], texels)),
+      spr_tex=_i32(_pk4(spr_tex).reshape(spr_tex.shape[0], texels)),
+      item_tex=_i32(_pk3(item_tiles).reshape(rules.N_ITEMS, N_AMOUNTS,
+                                             texels)),
+      code=code.astype(np.int32), vignette=parts['vig'])
+
+
+@functools.lru_cache(maxsize=8)
 def _bake_atlas(size, view, item_rows, device: str) -> Atlas:
-  return Atlas(**{name: torch.as_tensor(a, device=device)
-                  for name, a in _bake_tables(size, view, item_rows).items()})
+  as_t = lambda tables: {name: torch.as_tensor(a, device=device)
+                         for name, a in tables.items()}
+  return Atlas(**as_t(_bake_tables(size, view, item_rows)),
+               compact=CompactTables(**as_t(_bake_compact(size, view,
+                                                          item_rows))))
 
 
 def bake_atlas(size: Tuple[int, int] = (64, 64),
                view: Tuple[int, int] = (9, 9), item_rows: int = 2,
                device='cuda') -> Atlas:
-  """Bake the per-pixel tables for a render size (cached per device)."""
+  """Bake the per-pixel tables for a render size, with their compact form
+  (cached per device)."""
   return _bake_atlas(tuple(size), tuple(view), int(item_rows), str(device))
+
+
+def _code_fields(code: torch.Tensor):
+  """A compact pixel code -> (source index + 1, view flag, texel offset)."""
+  return (code & 255, ((code >> CODE_VIEW_BIT) & 1) == 1,
+          code >> CODE_OFF_SHIFT)
+
+
+def expand_compact(t: CompactTables) -> dict:
+  """The atlas's per-pixel tables rebuilt from the compact ones:
+  ``mat_planes``, ``spr_planes``, ``src``, ``vignette`` and ``view_mask``
+  as :class:`Atlas` holds them."""
+  src1, view, off = _code_fields(t.code)
+  strip = ~view & (src1 > 0)
+  texels = t.mat_tex.shape[1]
+  off_v = torch.where(view, off, 0).long()
+  off_s = torch.where(strip, off, 0).long()
+  items = t.item_tex.reshape(-1)
+  mat = [torch.where(view, t.mat_tex[k, off_v],
+                     torch.where(strip, items[off_s + k * texels], 0)
+                     if k < t.item_tex.shape[1] else 0)
+         for k in range(t.mat_tex.shape[0])]
+  spr = [torch.where(view, t.spr_tex[k, off_v], 0)
+         for k in range(t.spr_tex.shape[0])]
+  return dict(mat_planes=torch.stack(mat), spr_planes=torch.stack(spr),
+              src=src1 - 1, vignette=t.vignette.reshape(1, -1),
+              view_mask=view.to(torch.int32).reshape(1, -1))
 
 
 def _luma_i(r, g, b):
@@ -320,12 +437,7 @@ def render_win79_plain(win79: torch.Tensor, daylight: torch.Tensor,
   the channels and rounds alone), the desaturation, the canvas term of the
   daylight blend.  The half-and-half tint blends are exact either way.
   """
-  f32 = torch.float32
-  dev = win79.device
   c = atlas.src.shape[0]
-  daylight = daylight.to(f32).reshape(-1, 1)
-  slp = sleeping.reshape(-1, 1) != 0
-  seed = seeds.to(torch.int32).reshape(-1, 1)
   # Each pixel copies its source value (id 0 where it has none).
   has = atlas.src >= 0
   ids = torch.where(has[None],
@@ -333,7 +445,7 @@ def render_win79_plain(win79: torch.Tensor, daylight: torch.Tensor,
                     0)
   mid = ids & 15
   tex = srl(ids, 4) & 15
-  lane = torch.arange(c, device=dev)
+  lane = torch.arange(c, device=win79.device)
   # An id past its table shows nothing, as no candidate matches it.
   n_mat = atlas.mat_planes.shape[0]
   base = torch.where(mid < n_mat,
@@ -343,6 +455,59 @@ def render_win79_plain(win79: torch.Tensor, daylight: torch.Tensor,
   spr = torch.where((tex >= 1) & (tex < n_spr),
                     atlas.spr_planes[tex.clamp_max(n_spr - 1).long(), lane],
                     0)
+  return _shade(base, spr, daylight, sleeping, seeds, atlas.vignette,
+                atlas.view_mask != 0, skip_day_noise=False)
+
+
+def render_win79_compact(win79: torch.Tensor, daylight: torch.Tensor,
+                         sleeping: torch.Tensor, seeds: torch.Tensor,
+                         tables: CompactTables) -> torch.Tensor:
+  """:func:`render_win79_plain` through the compact tables, step for step
+  as the render kernel reads them: a pixel's code word gives its source
+  value and its texel offset; a view pixel picks its material and sprite
+  texels from the tile textures, a strip pixel its item tile's texel at
+  the amount it shows; frames by day skip the keyed noise, which cannot
+  reach them.  Equal to :func:`render_win79_plain` bit for bit."""
+  src1, view, off = _code_fields(tables.code)
+  strip = ~view & (src1 > 0)
+  ids = torch.where(src1 > 0,
+                    win79.to(torch.int32)[:, (src1 - 1).clamp_min(0).long()],
+                    0)
+  mid = ids & 15
+  tex = srl(ids, 4) & 15
+  texels = tables.mat_tex.shape[1]
+  n_mat, n_spr = tables.mat_tex.shape[0], tables.spr_tex.shape[0]
+  n_amt = tables.item_tex.shape[1]
+  off_v = torch.where(view, off, 0)
+  off_s = torch.where(strip, off, 0)
+  mats, sprs = tables.mat_tex.reshape(-1), tables.spr_tex.reshape(-1)
+  items = tables.item_tex.reshape(-1)
+  in_view = torch.where(
+      mid < n_mat, mats[(mid.clamp_max(n_mat - 1) * texels + off_v).long()],
+      0)
+  in_strip = torch.where(
+      mid < n_amt, items[(off_s + mid.clamp_max(n_amt - 1) * texels).long()],
+      0)
+  base = torch.where(view, in_view, torch.where(strip, in_strip, 0))
+  spr = torch.where(
+      view & (tex >= 1) & (tex < n_spr),
+      sprs[(tex.clamp_max(n_spr - 1) * texels + off_v).long()], 0)
+  return _shade(base, spr, daylight, sleeping, seeds, tables.vignette,
+                view, skip_day_noise=True)
+
+
+def _shade(base, spr, daylight, sleeping, seeds, vignette, view,
+           skip_day_noise: bool) -> torch.Tensor:
+  """Blit, night lighting, sleep overlay and view mask of (B, C) material
+  and sprite texels -> (B, C) int32 packed pixels.  ``skip_day_noise``:
+  frames whose darkness is exactly 0 take the canvas for the noised canvas
+  (``fma(1 - 0, ch, 0 * noise)`` is the canvas itself)."""
+  f32 = torch.float32
+  c = base.shape[1]
+  daylight = daylight.to(f32).reshape(-1, 1)
+  slp = sleeping.reshape(-1, 1) != 0
+  seed = seeds.to(torch.int32).reshape(-1, 1)
+  lane = torch.arange(c, device=base.device)
   un3 = lambda v: (v & 255, srl(v, 8) & 255, srl(v, 16) & 255)
   alpha = srl(spr, 24) & 255
 
@@ -355,12 +520,16 @@ def render_win79_plain(win79: torch.Tensor, daylight: torch.Tensor,
   # the noised canvas equals the canvas exactly.
   nbits = fmix(seed + lane.to(torch.int32) * i32c(0x9E3779B9))
   noise = fma32(srl(nbits, 8).to(f32), NOISE_SCALE, 32.0)
-  mask = (2.0 * (0.5 - daylight)).clamp_min(0.0) * atlas.vignette
+  dark = (2.0 * (0.5 - daylight)).clamp_min(0.0)
+  mask = dark * vignette.reshape(1, c)
   mn = mask * noise
   noised = [fma32(1.0 - mask, ch, mn) for ch in canv]
+  if skip_day_noise:
+    noised = [torch.where(dark == 0.0, ch, nz)
+              for ch, nz in zip(canv, noised)]
   nf = [torch.floor(ch).to(torch.int32) for ch in noised]
   lum = _luma_i(*nf).to(f32)
-  desat = [torch.floor(fma32(ch.to(f32) - lum, 0.4, lum)) for ch in nf]
+  desat = [torch.floor(fma32(ch.to(f32) - lum, DESAT, lum)) for ch in nf]
   tint = (0.0, 16.0, 64.0)                                # engine.py:195
   night = [0.5 * d + 0.5 * t for d, t in zip(desat, tint)]
   lit = [fma32(daylight, ch, (1.0 - daylight) * ng)
@@ -374,7 +543,7 @@ def render_win79_plain(win79: torch.Tensor, daylight: torch.Tensor,
          for ch, t in zip(lit, stint)]
   # Lighting covers the local view only; the item strip and the border keep
   # their raw texels (env.py:126-129).
-  vmask = atlas.view_mask != 0
+  vmask = view.reshape(1, c)
   out = [torch.floor(torch.where(vmask, o, ch)).to(torch.int32)
          for o, ch in zip(out, canv)]
   return out[0] | (out[1] << 8) | (out[2] << 16)

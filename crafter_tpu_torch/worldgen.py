@@ -4,7 +4,9 @@ The port's counterpart of ``crafter_tpu/worldgen.py:generate_world`` in its
 2-D noise modes: the same 13 noise channels, material cascade, mob seeding
 and ``chunk_touched``, from the same threefry draws, so every leaf equals
 the JAX package's world for the same key.  The noise runs through the CUDA
-kernel wrapper (``noise_mode`` 'auto') or the plain twin ('fast').
+kernel wrapper in its shared form (``noise_mode`` 'auto': the 13 channels'
+points once and a seed a world and channel, as the JAX package vmaps its
+kernel) or the plain twin on the expanded per-point inputs ('fast').
 
 Float details that keep it bit-exact: divisions by constants are multiplies
 by float32 reciprocals and single-use products feeding a sum are fused
@@ -14,6 +16,8 @@ the card.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -51,8 +55,14 @@ def _recip(d: float) -> float:
 
 
 def channel_points(cfg: EnvConfig, device) -> torch.Tensor:
-  """(13, W, H, 2) float32 noise sample points, shared by every world."""
-  w, h = cfg.area
+  """(13, W, H, 2) float32 noise sample points, shared by every world
+  (made once per area and device; do not write into it)."""
+  return _channel_points(tuple(cfg.area), str(torch.device(device)))
+
+
+@functools.lru_cache(maxsize=8)
+def _channel_points(area, device: str) -> torch.Tensor:
+  w, h = area
   x = torch.arange(w, dtype=torch.float32, device=device)[:, None].expand(w, h)
   y = torch.arange(h, dtype=torch.float32, device=device)[None, :].expand(w, h)
   pts = []
@@ -70,16 +80,23 @@ def _mat_in(m: torch.Tensor, member_table) -> torch.Tensor:
   return out
 
 
-def noise_inputs(keys: torch.Tensor, cfg: EnvConfig):
-  """The noise call of a batch of worlds: points (P, 2) float32 and
-  per-point int32 seeds (P,), P = R * 13 * W * H, world-major."""
-  w, h = cfg.area
-  r = keys.shape[0]
+def noise_seeds(keys: torch.Tensor) -> torch.Tensor:
+  """(R, 13) int32 noise seeds of a batch of worlds: one a world and
+  channel."""
   k_perm = prng.split(keys, 3)[:, 0]
   perm = prng.randint(k_perm, 0, 2 ** 31 - 1)                 # (R,) int32
   zs = torch.tensor([ch[4] for ch in CHANNELS], dtype=torch.int32,
                     device=keys.device)
-  seeds = perm[:, None] + zs[None, :] * _GOLDEN                # (R, 13)
+  return perm[:, None] + zs[None, :] * _GOLDEN
+
+
+def noise_inputs(keys: torch.Tensor, cfg: EnvConfig):
+  """The noise call of a batch of worlds in the per-point form: points
+  (P, 2) float32 and per-point int32 seeds (P,), P = R * 13 * W * H,
+  world-major."""
+  w, h = cfg.area
+  r = keys.shape[0]
+  seeds = noise_seeds(keys)                                    # (R, 13)
   pts = channel_points(cfg, keys.device)                       # (13,W,H,2)
   return (pts[None].expand(r, -1, -1, -1, -1).reshape(-1, 2),
           seeds[:, :, None].expand(-1, -1, w * h).reshape(-1))
@@ -95,9 +112,14 @@ def generate_world(keys: torch.Tensor, cfg: EnvConfig) -> state_lib.State:
 
   sub = prng.split(keys, 3)
   k_mat, k_obj = sub[:, 1], sub[:, 2]
-  noise_fn = noise.noise2_fast if cfg.noise_mode == 'fast' else \
-      noise_cuda.noise2
-  n = noise_fn(*noise_inputs(keys, cfg)).reshape(r, len(CHANNELS), w, h)
+  if cfg.noise_mode == 'fast':
+    n = noise.noise2_fast(*noise_inputs(keys, cfg))
+  else:
+    # The shared form: the channels' points once, a seed a world and channel.
+    n = noise_cuda.noise2(channel_points(cfg, dev).reshape(len(CHANNELS),
+                                                           w * h, 2),
+                          noise_seeds(keys))
+  n = n.reshape(r, len(CHANNELS), w, h)
   water_n = fma32(0.15, n[:, 2], n[:, 1])
   mountain_n = fma32(0.3, n[:, 4], n[:, 3]) * _recip(1.3)
 

@@ -20,7 +20,7 @@ import torch
 import crafter_tpu_torch as ct
 from crafter_tpu_torch import convert
 from crafter_tpu_torch import step as step_lib
-from crafter_tpu_torch import step_cuda, worldgen
+from crafter_tpu_torch import render_cuda, step_cuda, worldgen
 from crafter_tpu_torch.ops import noise, noise_cuda, roll_cuda
 from crafter_tpu_torch.state import leaves
 import dense_states
@@ -86,8 +86,11 @@ def test_worldgen_on_card_equals_cpu(dev):
   be the same in every leaf."""
   cfg = ct.EnvConfig()
   keys = ct.prng.fold_in(ct.home_keys(4, 320, dev), 1)
+  before = noise_cuda.noise2.launches_by_rows.get(320, 0)
   _assert_equal(worldgen.generate_world(keys, cfg),
                 worldgen.generate_world(keys.cpu(), cfg))
+  # The card's worlds came through the kernel's shared form.
+  assert noise_cuda.noise2.launches_by_rows[320] == before + 1
 
 
 def test_render_kernel_matches_plain_twin(dev):
@@ -121,6 +124,125 @@ def test_render_kernel_matches_plain_twin(dev):
                           cfg.size, fmt)
     assert torch.equal(got, ct.render.format_pixels(want, cfg.size, fmt)), fmt
   assert ct.render_win79.launches == before + 3
+
+
+def _frames(dev, n, night, seed):
+  """``n`` frames of stepped worlds under players spread over the map (a
+  share at its edge), a third asleep, all by day (``night`` False) or all
+  at night (True), or over a whole day (None)."""
+  cfg = ct.EnvConfig()
+  gen = torch.Generator(device=dev)
+  gen.manual_seed(seed)
+  rnd = lambda hi, shape: torch.randint(0, hi, shape, generator=gen,
+                                        device=dev, dtype=torch.int32)
+  vs = ct.vec_reset(ct.home_keys(seed, 16, dev), cfg)
+  env = vs.env
+  pick = rnd(16, (n,)).long()
+  packed = ct.pack_cells(env.mat_map, env.ent.etype, env.ent.aux,
+                         env.ent.facing)[pick]
+  pos = rnd(64, (n, 2))
+  pos[::7] = 0
+  slp = rnd(3, (n,)) == 0
+  steps = rnd(300, (n,))
+  if night is not None:
+    steps = steps % 100 + (160 if night else 20)     # night: 148..272
+  win = ct.window_prep(packed, pos, rnd(4, (n,)), slp, rnd(13, (n, 16)), cfg)
+  light = ct.daylight(steps, cfg.day_length)
+  if night is not None:
+    assert bool(((light < 0.5) == night).all())
+  return win, light, slp, ct.noise_seed(env.key[pick], steps)
+
+
+@pytest.mark.parametrize('instantiation', ['shared', 'global'])
+@pytest.mark.parametrize('n', [1, 13, 4097])
+@pytest.mark.parametrize('night', [False, True, None], ids=['day', 'night',
+                                                          'mixed'])
+def test_render_instantiations_match_twin(dev, instantiation, n, night):
+  """Both instantiations of the render kernel, in all three formats, on
+  frame counts that do not divide a block's work, by day, at night and
+  mixed: bit for bit the plain twin."""
+  cfg = ct.EnvConfig()
+  atlas = ct.bake_atlas(cfg.size, cfg.view, cfg.item_rows, dev)
+  win, light, slp, seeds = _frames(dev, n, night, 10 + n)
+  want = ct.render_win79_plain(win, light, slp, seeds, atlas)
+  before = ct.render_win79.launches
+  for fmt in ('packed', 'frames', 'words'):
+    got = ct.render_win79(win, light, slp, seeds, atlas, cfg.size, fmt,
+                          instantiation=instantiation)
+    assert torch.equal(got, ct.render.format_pixels(want, cfg.size, fmt)), fmt
+  assert ct.render_win79.launches == before + 3
+
+
+@pytest.mark.parametrize('instantiation', ['shared', 'global'])
+def test_render_daylight_outside_unit_interval(dev, instantiation):
+  """Daylight outside [0, 1] takes the kernel's branch with conversion
+  instructions (its floors may see negative arguments there): still the
+  twin's bytes."""
+  cfg = ct.EnvConfig()
+  atlas = ct.bake_atlas(cfg.size, cfg.view, cfg.item_rows, dev)
+  win, light, slp, seeds = _frames(dev, 13, None, 31)
+  light = torch.tensor([-0.5, 1.25, 2.0, -3.0, 0.75] * 2 + [1.0, 0.0, 0.5],
+                       device=dev)
+  want = ct.render_win79_plain(win, light, slp, seeds, atlas)
+  for fmt in ('packed', 'frames'):
+    got = ct.render_win79(win, light, slp, seeds, atlas, cfg.size, fmt,
+                          instantiation=instantiation)
+    assert torch.equal(got, ct.render.format_pixels(want, cfg.size, fmt)), fmt
+
+
+def test_render_kernel_at_512(dev):
+  """At 512 x 512 the tables do not fit in shared memory: 'auto' takes the
+  global instantiation, and it equals the twin."""
+  cfg = ct.EnvConfig(size=(512, 512))
+  atlas = ct.bake_atlas(cfg.size, cfg.view, cfg.item_rows, dev)
+  assert render_cuda.occupancy(atlas, True)[0] == 0
+  assert render_cuda.occupancy(atlas, False)[0] >= 1
+  blocks, smem = render_cuda.occupancy(
+      ct.bake_atlas((64, 64), cfg.view, cfg.item_rows, dev), True)
+  assert blocks >= 2 and smem > 48 * 1024, (blocks, smem)
+  with pytest.raises(ValueError, match='shared memory'):
+    render_cuda.render_win79(*_frames(dev, 2, None, 3), atlas, cfg.size,
+                             instantiation='shared')
+  win, light, slp, seeds = _frames(dev, 24, None, 4)
+  want = ct.render_win79_plain(win, light, slp, seeds, atlas)
+  for fmt in ('packed', 'frames'):
+    got = ct.render_win79(win, light, slp, seeds, atlas, cfg.size, fmt)
+    assert torch.equal(got, ct.render.format_pixels(want, cfg.size, fmt)), fmt
+
+
+@pytest.mark.parametrize('worlds', [1, 32, 320])
+def test_noise2_shared_kernel_matches_twin(dev, worlds):
+  """The shared form of the 2-D noise kernel, as worldgen calls it, against
+  its twin; and the per-point form on the same inputs expanded."""
+  cfg = ct.EnvConfig()
+  keys = ct.prng.fold_in(ct.home_keys(12, worlds, dev), 3)
+  pts = worldgen.channel_points(cfg, dev).reshape(13, -1, 2)
+  seeds = worldgen.noise_seeds(keys)
+  before = dict(noise_cuda.noise2.launches_by_rows)
+  got = noise_cuda.noise2(pts, seeds)
+  assert torch.equal(got, noise.noise2_shared(pts, seeds))
+  assert noise_cuda.noise2.launches_by_rows[worlds] == before.get(
+      worlds, 0) + 1
+  flat = noise_cuda.noise2(*worldgen.noise_inputs(keys, cfg))
+  assert torch.equal(flat, got.reshape(-1))
+  # Point counts that are not a multiple of the 4 a thread makes.
+  odd = pts[:, :4093].contiguous()
+  assert torch.equal(noise_cuda.noise2(odd, seeds),
+                     noise.noise2_shared(odd, seeds))
+
+
+def test_noise2_far_points_match_twin(dev):
+  """Points whose base corner lies 2^22 or more from the origin take the
+  kernel's branch with conversion instructions: still the twin's bits."""
+  gen = torch.Generator(device=dev)
+  gen.manual_seed(9)
+  pts = (torch.rand(100003, 2, generator=gen, device=dev) - 0.5) \
+      * torch.tensor([400.0, 3e7], device=dev)
+  seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (100003,), generator=gen,
+                        device=dev, dtype=torch.int32)
+  assert bool((pts[:, 1].abs() > 2 ** 23).any())
+  assert torch.equal(noise_cuda.noise2(pts, seeds),
+                     noise.noise2_fast(pts, seeds))
 
 
 def test_snapshots_and_tick_kernel_match_plain_twins(dev):

@@ -1,7 +1,7 @@
 """The port's plain 2-D noise against the JAX package's.
 
 Tolerances: bitwise against ``noise2_fast`` (the function worldgen calls
-on the CPU); within 1e-6 absolute against ``noise2_pallas`` in interpret
+on the CPU, also in the shared form of the kernel's twin); within 1e-6 absolute against ``noise2_pallas`` in interpret
 mode, whose candidate sum XLA fuses differently (the JAX package holds its
 own fast-vs-Pallas pair to 1e-5, tests/test_noise.py).  The float32 fused
 multiply-add the port uses to match XLA is checked against exact rational
@@ -21,7 +21,7 @@ from crafter_tpu.ops.noise_pallas import noise2_pallas
 from crafter_tpu import worldgen as jworldgen
 from crafter_tpu_torch import worldgen
 from crafter_tpu_torch.config import EnvConfig
-from crafter_tpu_torch.ops import noise
+from crafter_tpu_torch.ops import noise, noise_cuda
 from crafter_tpu_torch.ops.fma import fma32
 from one_thread import one_torch_thread  # noqa: F401
 
@@ -114,3 +114,42 @@ def test_fma32_is_correctly_rounded():
                               + fractions.Fraction(float(z)))
                    for x, y, z in zip(a, b, c)], np.float32)
   np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize('rows', [1, 3])
+def test_noise2_shared_twin_equals_expanded_and_jax(rows):
+  """The twin of the kernel's shared form (points once a channel, a seed a
+  row and channel) equals ``noise2_fast`` on the expanded per-point inputs
+  and JAX's ``noise2_fast`` on the same numpy inputs, bit for bit."""
+  rs = np.random.RandomState(rows)
+  pts = np.asarray(jax.jit(_channel_inputs)(0)[0]).reshape(13, 4096, 2)
+  seeds = rs.randint(-2 ** 31, 2 ** 31 - 1, size=(rows, 13)).astype(np.int32)
+  got = noise.noise2_shared(torch.from_numpy(pts), torch.from_numpy(seeds))
+  assert got.shape == (rows, 13, 4096) and got.dtype == torch.float32
+  flat = noise.noise2_fast(
+      torch.from_numpy(np.broadcast_to(pts, (rows, 13, 4096, 2)).copy()),
+      torch.from_numpy(np.repeat(seeds[:, :, None], 4096, 2)))
+  np.testing.assert_array_equal(got.numpy(), flat.numpy())
+  want = np.asarray(jnoise.noise2_fast(
+      np.broadcast_to(pts, (rows, 13, 4096, 2)), seeds[:, :, None]))
+  np.testing.assert_array_equal(got.numpy(), want)
+  # The kernel wrapper on CPU tensors is this twin.
+  np.testing.assert_array_equal(
+      noise_cuda.noise2(torch.from_numpy(pts),
+                        torch.from_numpy(seeds)).numpy(), want)
+
+
+def test_noise_seeds_and_inputs_agree():
+  """The per-point inputs are the shared ones expanded, world-major."""
+  keys = torch.tensor([[0, 1], [2, 3], [5, 8]], dtype=torch.int64)
+  cfg = EnvConfig()
+  pts, seeds = worldgen.noise_inputs(keys, cfg)
+  shared = worldgen.channel_points(cfg, 'cpu').reshape(13, 4096, 2)
+  rows = worldgen.noise_seeds(keys)
+  assert rows.shape == (3, 13) and rows.dtype == torch.int32
+  assert torch.equal(pts.reshape(3, 13, 4096, 2),
+                     shared[None].expand(3, -1, -1, -1))
+  assert torch.equal(seeds.reshape(3, 13, 4096),
+                     rows[:, :, None].expand(-1, -1, 4096))
+  with pytest.raises(ValueError):
+    noise_cuda.noise2(shared, rows[:, :12])

@@ -266,6 +266,55 @@ def test_fused_multiply_adds_placed_as_xla():
   blend shows: found by rendering 8192 random night frames with each
   placement moved (noise scale-and-shift unfused; the other product of the
   noise blend fused, or none).  Held against the jitted ``_render_core``."""
+  win, light, slp, seeds = _fma_frames()
+  a = jrender.bake_atlas(JCFG.size, JCFG.view, JCFG.item_rows)
+  ref = jax.jit(lambda w, d, s, sd: jrender._render_core(
+      w, d[:, None], s[:, None], sd[:, None], a.mat_planes, a.spr_planes,
+      a.expand, a.vignette, a.view_mask))(win, light, slp, seeds)
+  ours = ct.render_win79_plain(
+      T(win), T(light), T(slp), T(seeds),
+      ct.bake_atlas(CFG.size, CFG.view, CFG.item_rows, 'cpu'))
+  np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
+
+
+# --- the render kernel's compact tables -----------------------------------
+
+
+@pytest.mark.parametrize('size', [(64, 64), (512, 512)], ids=str)
+def test_compact_tables_expand_to_atlas(size):
+  """The compact tables rebuild every per-pixel table of the atlas exactly
+  (the atlas is held against JAX's by ``test_atlas_equals_jax``)."""
+  atlas = ct.bake_atlas(size, CFG.view, CFG.item_rows, 'cpu')
+  planes = render_lib.expand_compact(atlas.compact)
+  for name in ('mat_planes', 'spr_planes', 'src', 'vignette', 'view_mask'):
+    want = getattr(atlas, name)
+    got = planes[name]
+    assert got.dtype == want.dtype and got.shape == want.shape, name
+    assert torch.equal(got, want), name
+
+
+def test_compact_tables_layout():
+  """Each texture once: at 64 x 64 the tables take 69,812 bytes (the
+  render kernel stages them in shared memory), every code word names a
+  window value or none, and the view bit marks the view's tiles."""
+  t = ct.bake_atlas(CFG.size, CFG.view, CFG.item_rows, 'cpu').compact
+  nbytes = sum(x.numel() * x.element_size()
+               for x in (t.mat_tex, t.spr_tex, t.item_tex, t.code,
+                         t.vignette))
+  assert nbytes == 69812
+  assert t.mat_tex.shape == (rules.N_MATERIALS + 1, 49)
+  assert t.item_tex.shape == (rules.N_ITEMS, render_lib.N_AMOUNTS, 49)
+  src1, view, off = render_lib._code_fields(t.code)
+  n_view = CFG.local_grid[0] * CFG.local_grid[1]
+  assert int(src1.max()) == 79 and bool((src1[view] <= n_view).all())
+  assert bool((src1[~view & (src1 > 0)] > n_view).all())
+  assert int(off[view].max()) == 48
+  assert int(off.max()) < t.item_tex.numel()
+  assert int(view.sum()) == 63 * 49
+
+
+def _fma_frames():
+  """The frames of :func:`test_fused_multiply_adds_placed_as_xla`."""
   table = np.load(pathlib.Path(state_lib.ASSETS) / 'daylight.npz')['table']
   picks = {101: [961, 113, 187, 298], 104: [219, 598, 121, 536]}
   win, light, seeds = [], [], []
@@ -282,12 +331,46 @@ def test_fused_multiply_adds_placed_as_xla():
     light.append(table[steps][rows])
     seeds.append(sd[rows])
   win, light, seeds = map(np.concatenate, (win, light, seeds))
-  slp = np.zeros(len(win), np.int32)
-  a = jrender.bake_atlas(JCFG.size, JCFG.view, JCFG.item_rows)
-  ref = jax.jit(lambda w, d, s, sd: jrender._render_core(
-      w, d[:, None], s[:, None], sd[:, None], a.mat_planes, a.spr_planes,
-      a.expand, a.vignette, a.view_mask))(win, light, slp, seeds)
-  ours = ct.render_win79_plain(
-      T(win), T(light), T(slp), T(seeds),
-      ct.bake_atlas(CFG.size, CFG.view, CFG.item_rows, 'cpu'))
-  np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
+  return win, light, np.zeros(len(win), np.int32), seeds
+
+
+@pytest.mark.parametrize('case', ['day', 'night', 'sleeping', 'edge', 'fma',
+                                  'wild'])
+def test_compact_render_equals_plain(scenes, case):
+  """The plain render through the compact tables (the kernel's reads, and
+  its skip of the noise by day) equals ``render_win79_plain`` on the
+  scenes' day, night, sleeping and edge frames, on the fused-multiply-add
+  frames, and on rows of arbitrary int32 window values."""
+  tatlas = scenes['tatlas']
+  if case == 'fma':
+    win, light, slp, seeds = map(T, _fma_frames())
+  elif case == 'wild':
+    rs = np.random.RandomState(11)
+    win = T(rs.randint(-2 ** 31, 2 ** 31 - 1, size=(16, 79)).astype(np.int32))
+    light = ct.daylight(T(np.arange(0, 300, 19, dtype=np.int32)), 300)
+    slp = T(np.arange(16, dtype=np.int32) % 3 == 0)
+    seeds = T(rs.randint(-2 ** 31, 2 ** 31 - 1, size=16).astype(np.int32))
+  else:
+    rows = scenes['cases'][case]
+    f = scenes['f']
+    win = T(scenes['win'][0][rows])
+    light = ct.daylight(T(f['step'][rows]), 300)
+    slp = T(f['sleeping'][rows])
+    seeds = T(scenes['seeds'][0][rows])
+  want = ct.render_win79_plain(win, light, slp, seeds, tatlas)
+  got = render_lib.render_win79_compact(win, light, slp, seeds,
+                                        tatlas.compact)
+  assert torch.equal(got, want)
+  if case == 'night':
+    assert bool((light < 0.5).all())
+  elif case == 'day':
+    assert bool((light >= 0.5).all())
+
+
+def test_render_wrapper_rejects_unknown_instantiation(scenes):
+  f, tatlas = scenes['f'], scenes['tatlas']
+  with pytest.raises(ValueError, match='instantiation'):
+    render_cuda.render_win79(T(scenes['win'][0]),
+                             ct.daylight(T(f['step']), 300),
+                             T(f['sleeping']), T(scenes['seeds'][0]), tatlas,
+                             CFG.size, 'frames', instantiation='texture')

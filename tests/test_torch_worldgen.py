@@ -1,6 +1,7 @@
 """The port's ``generate_world`` against the JAX package's, leaf for leaf.
 
-Both in the 2-D noise mode worldgen uses on the CPU ('fast'); every leaf
+In the per-point noise mode ('fast') and in the default mode, whose
+kernel wrapper takes the shared form (on the CPU its plain twin); every leaf
 (materials, entity planes, chunk_touched, the episode key, the player
 record) must be equal.  Tolerance: none.
 """
@@ -15,6 +16,7 @@ from crafter_tpu import worldgen as jworldgen
 from crafter_tpu.config import EnvConfig as JaxConfig
 from crafter_tpu_torch import convert, worldgen
 from crafter_tpu_torch.config import EnvConfig
+from crafter_tpu_torch.ops import noise_cuda
 from one_thread import one_torch_thread  # noqa: F401
 
 
@@ -76,3 +78,35 @@ def test_sigmoid32_and_exp32_match_jax():
                                 np.asarray(jax.jit(jax.nn.sigmoid)(x)))
   np.testing.assert_array_equal(exp32(t).numpy(),
                                 np.asarray(jax.jit(jnp.exp)(x)))
+
+
+@pytest.mark.parametrize('seed', [5, 41])
+def test_generate_world_shared_noise_matches_jax(seed):
+  """The default noise mode takes the kernel wrapper's shared form (its
+  plain twin here): the worlds equal JAX's in every leaf, and worldgen
+  passes the channels' points once and a seed a world and channel, never
+  the expanded per-point inputs."""
+  n = 6
+  keys = jax.vmap(lambda i: jax.random.fold_in(jax.random.key(seed), i))(
+      jnp.arange(n))
+  ref = _to_numpy(jax.jit(jax.vmap(
+      lambda k: jworldgen.generate_world(k, JaxConfig(noise_mode='fast'))))(
+          keys))
+  kd = torch.from_numpy(np.asarray(jax.random.key_data(keys)).astype(
+      np.int64))
+  calls = []
+  inner = noise_cuda.noise2
+
+  def spy(points, seeds):
+    calls.append((tuple(points.shape), tuple(seeds.shape)))
+    return inner(points, seeds)
+
+  def no_expansion(*args):
+    raise AssertionError('the expanded per-point inputs were built')
+
+  with pytest.MonkeyPatch.context() as mp:
+    mp.setattr(noise_cuda, 'noise2', spy)
+    mp.setattr(worldgen, 'noise_inputs', no_expansion)
+    ours = convert.to_numpy(worldgen.generate_world(kd, EnvConfig()))
+  assert calls == [((13, 4096, 2), (n, 13))]
+  _assert_same(ours, ref)

@@ -1,16 +1,17 @@
-"""Time the port's state-only and per-tick paths on one GPU, so that two
-trees of the repository can be compared inside one call.
+"""Time the port's state-only, pixel and per-tick paths on one GPU, so that
+two trees of the repository can be compared inside one call.
 
     python3 tools/bench_paths_cuda.py [--root DIR] [--groups 10] [--ticks 20]
 
 Imports ``crafter_tpu_torch`` from DIR (default: this checkout; its kernels
 are built there at first use) and, at 4096 envs, times groups of
-``vec_step_group`` (K = 10, ``reset_batch`` 320, random actions drawn on
-the card) and ``VecEnv.step`` calls (``reset_batch`` 32) between CUDA
-events after a warm-up, then profiles 3 groups and 6 ticks
-(``torch.profiler``): wall and device-busy ms, and the device time of the
-group and tick kernels.  Prints one JSON line with the card's name and
-power limit.  Needs a GPU.
+``vec_step_group`` and of ``vec_step_group_obs`` (K = 10, ``reset_batch``
+320, one frame per tick and env, random actions drawn on the card) and
+``VecEnv.step`` calls (``reset_batch`` 32) between CUDA events after a
+warm-up, then profiles 3 groups of each and 6 ticks (``torch.profiler``):
+wall and device-busy ms, and the device time of the group and tick
+kernels, the render kernel and the 2-D noise kernel.  Prints one JSON line
+with the card's name and power limit.  Needs a GPU.
 """
 
 import argparse
@@ -69,19 +70,34 @@ def main():
       wall = (time.perf_counter() - t0) * 1e3 / reps
     dev_events = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in dev_events) / 1e3 / reps
-    kernel = sum(e.self_device_time_total for e in dev_events
-                 if 'tick_kernel' in e.key) / 1e3 / reps
-    return {'wall_ms': wall, 'device_busy_ms': busy, 'tick_kernels_ms': kernel}
+    per_rep = lambda name: sum(e.self_device_time_total for e in dev_events
+                               if name in e.key) / 1e3 / reps
+    # Launches the profiler recorded, per call: it loses some at times.
+    seen = lambda name: sum(e.count for e in dev_events if name in e.key) \
+        / reps
+    return {'wall_ms': wall, 'device_busy_ms': per_rep(''),
+            'tick_kernels_ms': per_rep('tick_kernel'),
+            'render_kernel_ms': per_rep('render_kernel'),
+            'noise2_kernel_ms': per_rep('noise2'),
+            'recorded_per_call': {name: seen(name) for name in (
+                'tick_kernel', 'render_kernel', 'noise2')}}
 
   box = [ct.vec_reset_chunked(ct.home_keys(0, N_ENVS, dev), cfg)]
 
   def group():
     box[0], _ = ct.vec_step_group(box[0], draw(), cfg, RESET_BATCH)
 
+  core = ct.CrafterEnv(cfg, dev)
+
+  def pixel_group():
+    box[0], _, _ = ct.vec_step_group_obs(box[0], draw(), cfg, RESET_BATCH,
+                                         core)
+
   out = {'root': args.root, 'card': card}
   out['state_only_ms_per_group'] = events(group, args.groups)
   out['state_only_profile'] = profile(group, 3)
+  out['pixel_ms_per_group'] = events(pixel_group, args.groups)
+  out['pixel_profile'] = profile(pixel_group, 3)
   venv = ct.VecEnv(N_ENVS, cfg, seed=3, device=dev)
   venv.reset()
   step = lambda: venv.step(draw()[0])
