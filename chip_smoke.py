@@ -7,8 +7,9 @@ Run from the repository root on a machine with an NVIDIA H100:
 1. Builds the CUDA kernels of ``crafter_tpu_torch/csrc`` (nvcc, sm_90a),
    prints each kernel's registers and spills, and the resident blocks per
    SM and shared memory a block of the group and tick kernels at 64x64 and
-   at 48x48, and of the render kernel's two instantiations at 64x64 and of
-   its global one at 512x512 (the occupancy calculator).
+   at 48x48, of the balance kernel at 64x64 with 12x12 and 5x7 chunks, and
+   of the render kernel's two instantiations at 64x64 and of its global one
+   at 512x512 (the occupancy calculator).
 2. Holds each kernel against its plain PyTorch twin on the card, on the
    same inputs at main-path shapes: the group tick (without and with render
    snapshots), the tick and the balance at 4096 envs (states reached by
@@ -17,7 +18,10 @@ Run from the repository root on a machine with an NVIDIA H100:
    (``tests/dense_states.py``) at 4096 envs, on 1024 such states of a 48x48
    world (the kernels' generic instantiation) and on the hand-built scenes
    of the CPU tests, requiring skeletons to shoot, arrows to hit and
-   zombies to strike in the dense ticks; the 2-D noise in its shared form
+   zombies to strike in the dense ticks; the balance also on dense states
+   with steps past 10000 at a day length of 200 and a third of the worlds
+   all grass, at 4096 envs with 12x12 and 5x7 chunks and on 1024 envs of a
+   48x40 world (the kernel's generic loads); the 2-D noise in its shared form
    (the channels' points once, a seed a world and channel) and its
    per-point form at 320, 512 and 32 worlds (a reset pass, a chunk of
    ``vec_reset_chunked``, the per-tick reset pass), the worlds made from it
@@ -26,10 +30,13 @@ Run from the repository root on a machine with an NVIDIA H100:
    formats and both instantiations (tables in shared memory or read from
    global memory), on 4096 frames (the per-tick paths' batch), with a
    share of the frames at night, a share sleeping and some players at the
-   map's edge, and at 512x512 (the global instantiation); the 3-D noise on
+   map's edge, and at 512x512 (the global instantiation), and the daylight
+   kernel on those frames' steps against its plain form; the 3-D noise on
    the 3-D form of that reset pass's points
    (each channel's z as the third coordinate) and the roll micro-bench
-   kernel on (40960, 4096) int32 rows, all three kinds at 10 and 40 stages.
+   kernel on (40960, 4096) int32 rows, all three kinds at 10 and 40 stages,
+   its 'roll' kind at 10 stages timed over ROLL_REPEATS repeats by events
+   and by the profiler against its bound.
    Integer outputs, rewards and frame bytes must be bitwise equal; noise
    must be bitwise equal or within NOISE_ATOL (the count of differing
    points is printed), with no material of the 320 worlds flipped.
@@ -52,16 +59,18 @@ Run from the repository root on a machine with an NVIDIA H100:
 4. Runs the kernel path and the plain path on the card, and the CPU path,
    at 13 envs across episode ends and requires every leaf and frame equal:
    3 groups state-only, 3 groups of the pixel path, 30 ticks of ``VecEnv``
-   (card and CPU); ``daylight`` on the card must equal the CPU's for
-   steps 0..10000; the policy's forward on the card must agree with the CPU's
-   within POLICY_ATOL; and a training state saved on the card, restored and
-   stepped must equal the one stepped without the round trip.
+   (card and CPU); ``daylight`` on the card (its kernel) must equal the
+   CPU's for steps 0..20000 at day lengths 200 and 300; the policy's
+   forward on the card must agree with the CPU's within POLICY_ATOL; and a
+   training state saved on the card, restored and stepped must equal the
+   one stepped without the round trip.
 
 Every kernel's time is taken with the wrapper (CUDA events) and on the
-device alone (``torch.profiler``).  Prints the kernel table as one JSON
+device alone (``torch.profiler``); the balance also prints the host's
+share of its time with the wrapper.  Prints the kernel table as one JSON
 line, one row per kernel and main-path shape, then the card's name and
-power limit, then ``{"ok": true, "device": {...}}`` as the last line.  Any failed
-phase raises, so the script exits non-zero and prints no result.
+power limit, then ``{"ok": true, "device": {...}}`` as the last line.  Any
+failed phase raises, so the script exits non-zero and prints no result.
 """
 
 import json
@@ -89,6 +98,12 @@ NOISE_WORLDS = (320, 512, 32)   # reset pass, vec_reset_chunked, per tick
 TOP_OPS = 8
 NOISE_ATOL = 1e-6          # noise may differ from its twin by at most this
 ROLL_ROWS = 40960          # rows of the roll micro-bench (tools/bench_roll.py)
+ROLL_REPEATS = 5           # repeats of its timing against the bound
+# The balance kernel's checks beyond the group's states: (area, chunk size,
+# envs) of dense states at a day length of 200; 48x40 takes the generic
+# loads (a height that is no multiple of 16).
+BALANCE_CASES = (((64, 64), (12, 12), 4096), ((64, 64), (5, 7), 4096),
+                 ((48, 40), (12, 12), 1024))
 # The tick kernels' generic instantiation is checked on this area.
 DENSE_AREA, DENSE_AREA_ENVS = (48, 48), 1024
 # The training path: the sizes of tools/bench_ppo.py.
@@ -122,10 +137,13 @@ OPS_TICK_ACTIVE = 180
 OPS_TICK_PLAYER = 300
 OPS_BALANCE_CELL = 4
 OPS_NOISE_POINT = 170
-# The 3-D noise: 26 candidates of ~24 float operations (offsets, squish,
-# attenuation, gradient dot, sum) and ~31 integer ones (hash, modulo,
-# gradient decode), and ~20 to find the base cell.
-OPS_NOISE3_POINT = 1450
+# The 3-D noise (csrc/noise3.cu:candidates, an FMA counted as two): the
+# base cell, its float sums, four squish products and the hash products
+# ~58; the coordinate differences 72 (36 distinct, shared by candidates
+# with equal offsets); the attenuations 154, their fourth powers 52; the
+# hashes 286 (xor of the three products, mix, shift, xor, mask, modulo 24,
+# index); the gradient dot products 130 and the sum 50.
+OPS_NOISE3_POINT = 800
 OPS_RENDER_TEXEL = 30
 OPS_RENDER_LIGHT = 75
 OPS_RENDER_NOISE = 25
@@ -203,6 +221,11 @@ def main():
       print(f'occupancy: {kernel} kernel at {area[0]}x{area[1]}: {blocks} '
             f'blocks of 256 threads per SM, {smem} bytes of shared memory '
             'a block', flush=True)
+  for chunk in ((12, 12), (5, 7)):
+    blocks, smem = step_cuda.balance_occupancy(ct.EnvConfig(chunk_size=chunk))
+    print(f'occupancy: balance kernel at 64x64, {chunk[0]}x{chunk[1]} chunks: '
+          f'{blocks} blocks of 256 threads per SM, {smem} bytes of shared '
+          'memory a block', flush=True)
   cfg0 = ct.EnvConfig()
   for size, shared in (((64, 64), True), ((64, 64), False),
                        (RENDER_BIG, False)):
@@ -257,6 +280,10 @@ def main():
 
   def dev_str(t):
     return 'not measured' if t is None else f'{t:.4f} ms'
+
+  def host_share(ms, dev_ms):
+    """The share of a call's time (with the wrapper) beyond the kernel's."""
+    return 'not measured' if dev_ms is None else f'{1 - dev_ms / ms:.1%}'
 
   def max_err(a, b, what):
     """Max |a - b| over matching leaves (dataclasses, dicts or tensors);
@@ -438,9 +465,40 @@ def main():
   if err != 0:
     fail('balance disagrees with balance_plain')
   changed = int((bal.ent.etype != got[0].ent.etype).sum())
-  print(f'balance: {changed} cells changed by the pass', flush=True)
+  print(f'balance: {changed} cells changed by the pass; {ms:.4f} ms with the '
+        f'wrapper, device {dev_str(bal_dev_ms)}, host share '
+        f'{host_share(ms, bal_dev_ms)}', flush=True)
   if changed == 0:
     fail('the balance pass changed nothing: the check has no teeth')
+  # Dense states past step 10000 at a day length of 200, a third of the
+  # worlds all grass (spawn picks on every rank), other chunk sizes and an
+  # area whose height is no multiple of 16.
+  for area, chunk, nb in BALANCE_CASES:
+    bcfg = dataclasses.replace(cfg, area=area, chunk_size=chunk,
+                               day_length=200)
+    bst = convert.state_from_numpy(
+        dense_states.balance_states(nb, 23, area, chunk), dev)
+    bseeds = step_lib.tick_seeds(bst.key, bst.step)[2]
+    bocc = (torch.rand(bst.ent.etype.shape, generator=gen, device=dev)
+            < 0.05).to(torch.uint8)
+    what = (f'{nb} dense states at {area[0]}x{area[1]}, '
+            f'{chunk[0]}x{chunk[1]} chunks')
+    for o in (bocc, None):
+      bk = step_cuda.balance(bst, bseeds, o, bcfg)
+      if max_err(bk, step_lib.balance_plain(bst, bseeds, o, bcfg),
+                 f'balance {what}'):
+        fail(f'balance disagrees with balance_plain on {what}')
+    moved = int((bk.ent.etype != bst.ent.etype).sum())
+    _, bms = timed(lambda: step_cuda.balance(bst, bseeds, bocc, bcfg), 5)
+    bdev = device_ms(lambda: step_cuda.balance(bst, bseeds, bocc, bcfg),
+                     'balance_kernel')
+    print(f'balance on {what}: bitwise equal to the twin with and without '
+          f'occupancy, {moved} cells changed; {bms:.4f} ms with the wrapper, '
+          f'device {dev_str(bdev)}, host share {host_share(bms, bdev)}',
+          flush=True)
+    if moved == 0:
+      fail(f'the balance changed nothing on {what}: the check has no teeth')
+    del bst, bk, bocc
   nch = cfg.n_chunks[0] * cfg.n_chunks[1]
   rows.append(dict(
       name='balance', source='crafter_tpu_torch/csrc/balance.cu',
@@ -520,7 +578,14 @@ def main():
   sleeping = rnd(5, (b,)) == 0
   win79 = render_lib.window_prep(packed, ppos, rnd(4, (b,)), sleeping,
                                  rnd(13, (b, ct.rules.N_ITEMS)), cfg)
-  light = ct.daylight(steps, cfg.day_length)
+  light, day_ms = timed(lambda: ct.daylight(steps, cfg.day_length), 5)
+  plain_light, day_plain_ms = timed(
+      lambda: ct.state.daylight_plain(steps, cfg.day_length), 3)
+  print(f'daylight kernel on {b} steps: {day_ms:.4f} ms with the wrapper '
+        f'(plain {day_plain_ms:.4f} ms), equal to the plain form: '
+        f'{torch.equal(light, plain_light)}', flush=True)
+  if not torch.equal(light, plain_light):
+    fail('the daylight kernel disagrees with daylight_plain')
   seeds = render_lib.noise_seed(env.key.repeat(k, 1), steps)
   n_night, n_sleep = int((light < 0.5).sum()), int(sleeping.sum())
   n_edge = int((win79[:, :63] & 15 == render_lib.GRAY_ID).any(1).sum())
@@ -683,6 +748,19 @@ def main():
   _, lib_ms = timed(lambda: torch.roll(x, -1, dims=1), 3)
   roll_dev_ms = device_ms(lambda: roll_cuda.roll_stages(x, 'roll', 10),
                           'roll_kernel', 3)
+  # Its share of the bound over repeats: events with the wrapper, and the
+  # profiler's device time.
+  roll_bound = 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3
+  ev = [timed(lambda: roll_cuda.roll_stages(x, 'roll', 10), 3)[1]
+        for _ in range(ROLL_REPEATS)]
+  pr = [device_ms(lambda: roll_cuda.roll_stages(x, 'roll', 10),
+                  'roll_kernel', 3) for _ in range(ROLL_REPEATS)]
+  shares = lambda ts: ', '.join('not measured' if t is None
+                                else f'{roll_bound / t:.1%}' for t in ts)
+  print(f'roll x10 over {ROLL_REPEATS} repeats, bound {roll_bound:.4f} ms: '
+        f'events {", ".join(f"{t:.4f}" for t in ev)} ms (bound share '
+        f'{shares(ev)}); profiler {", ".join(dev_str(t) for t in pr)} '
+        f'(bound share {shares(pr)})', flush=True)
   stage_us = lambda name: (roll_ms[name, 40][0] - roll_ms[name, 10][0]) \
       / 30 * 1e3
   print(f'roll: one torch.roll of the rows {lib_ms:.3f} ms; a roll stage '
@@ -698,10 +776,13 @@ def main():
   torch.cuda.empty_cache()
 
   # 3. The paths, counted and timed.
+  # The daylight kernel replaces no TPU kernel (XLA fuses the JAX
+  # function): it is counted but has no row in the kernel table.
   wrappers = {'group_tick': step_cuda.group_tick, 'tick': step_cuda.tick,
               'balance': step_cuda.balance, 'noise2': noise_cuda.noise2,
               'render_win79': render_cuda.render_win79,
-              'noise3': noise_cuda.noise3, 'roll': roll_cuda.roll_stages}
+              'noise3': noise_cuda.noise3, 'roll': roll_cuda.roll_stages,
+              'daylight': ct.daylight}
 
   def zero_counts():
     for fn in wrappers.values():
@@ -819,7 +900,7 @@ def main():
     zero_counts()
     vs, ms, seen, last = run_pixel(vs, PIXEL_GROUPS)
     counts = read_counts('pixel', ('group_tick', 'balance', 'noise2',
-                                   'render_win79'))
+                                   'render_win79', 'daylight'))
     if not torch.equal(last, core.observe_batch(vs.env)):
       fail('pixel path: the last frame is not the frame of the final state')
     del last
@@ -874,8 +955,8 @@ def main():
   end.record()
   torch.cuda.synchronize()
   tick_ms = start.elapsed_time(end)
-  tick_counts = read_counts('per-tick',
-                            ('tick', 'balance', 'noise2', 'render_win79'))
+  tick_counts = read_counts('per-tick', ('tick', 'balance', 'noise2',
+                                        'render_win79', 'daylight'))
   check_advanced(venv.state, vs0, TICKS, 'per-tick')
   if obs.shape != (N_ENVS, cfg.size[1], cfg.size[0], 3) \
       or info['semantic'].shape != (N_ENVS,) + tuple(cfg.area):
@@ -933,8 +1014,8 @@ def main():
     if int(stats['count']) + int(stats['dropped']) != ended:
       fail(f'training path: stats count {int(stats["count"])} + dropped '
            f'{int(stats["dropped"])} != {ended} episodes ended')
-  ppo_counts = read_counts('training',
-                           ('tick', 'balance', 'noise2', 'render_win79'))
+  ppo_counts = read_counts('training', ('tick', 'balance', 'noise2',
+                                       'render_win79', 'daylight'))
   steps_per_update = PPO_ENVS * PPO_ROLLOUT
   if ts.update != 3 or ts.env_steps != 3 * steps_per_update:
     fail(f'training path: update {ts.update}, env_steps {ts.env_steps}')
@@ -1046,11 +1127,14 @@ def main():
   print(f'13 envs x 30 VecEnv ticks: card == CPU, obs, reward, done and '
         f'info ({int(ea.state.episode.sum())} episodes begun)', flush=True)
 
-  all_steps = torch.arange(0, 10001, dtype=torch.int32)
-  if not torch.equal(ct.daylight(all_steps.to(dev), cfg.day_length).cpu(),
-                     ct.daylight(all_steps, cfg.day_length)):
-    fail('daylight on the card differs from the CPU\'s')
-  print('daylight: card == CPU for steps 0..10000', flush=True)
+  all_steps = torch.arange(0, 20001, dtype=torch.int32)
+  for day_length in (200, 300):
+    if not torch.equal(ct.daylight(all_steps.to(dev), day_length).cpu(),
+                       ct.daylight(all_steps, day_length)):
+      fail(f'daylight on the card differs from the CPU\'s at day length '
+           f'{day_length}')
+  print('daylight (the kernel): card == CPU for steps 0..20000 at day '
+        'lengths 200 and 300', flush=True)
 
   # The trained policy on the card against the CPU, from the same
   # parameters and frames (bfloat16 trunk on both).

@@ -22,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_ROOT = Path(__file__).resolve().parent.parent / 'build'
 SOURCES = ('noise2.cu', 'noise3.cu', 'roll.cu', 'group_tick.cu', 'balance.cu',
-           'render.cu')
+           'render.cu', 'daylight.cu')
 FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
          # No implicit multiply-add contraction: the kernels place every
          # fused multiply-add explicitly, to match their plain twins.
@@ -106,7 +106,8 @@ def library() -> ctypes.CDLL:
     lib.crafter_noise2.argtypes = [vp, vp, vp, i64, f32, f32, f32, vp]
     lib.crafter_noise2_shared.argtypes = ([vp] * 3 + [i32] * 3 + [f32] * 3
                                           + [vp])
-    lib.crafter_noise3.argtypes = [vp, vp, i32, vp, i64, f32, f32, f32, vp]
+    lib.crafter_noise3.argtypes = [vp, vp, i32, vp, i64, i32, f32, f32, f32,
+                                   vp]
     lib.crafter_roll.argtypes = [vp, vp, i64, i32, i32, vp]
     lib.crafter_group_tick.argtypes = [vp] * 24 + [i32] * 6 + [vp]
     lib.crafter_tick.argtypes = [vp] * 16 + [i32] * 4 + [vp]
@@ -115,13 +116,18 @@ def library() -> ctypes.CDLL:
                                    + [vp] * 3 + [i32] * 5 + [vp])
     lib.crafter_render_occupancy.argtypes = ([i32] * 5
                                              + [ctypes.POINTER(i32)] * 2)
-    lib.crafter_balance.argtypes = [vp] * 14 + [i32] * 7 + [vp]
+    lib.crafter_balance.argtypes = ([vp] * 7 + [i64, vp, i64, i64, vp, i64]
+                                    + [vp] * 4 + [i32] * 8 + [f32, vp])
+    lib.crafter_balance_occupancy.argtypes = ([i32] * 3
+                                              + [ctypes.POINTER(i32)] * 2)
+    lib.crafter_daylight.argtypes = [vp, i64, i32, f32, vp, vp]
     lib.crafter_error_string.argtypes = [i32]
     lib.crafter_error_string.restype = ctypes.c_char_p
     for fn in ('crafter_noise2', 'crafter_noise2_shared', 'crafter_noise3',
                'crafter_roll', 'crafter_group_tick', 'crafter_tick',
-               'crafter_tick_occupancy', 'crafter_balance', 'crafter_render',
-               'crafter_render_occupancy'):
+               'crafter_tick_occupancy', 'crafter_balance',
+               'crafter_balance_occupancy', 'crafter_render',
+               'crafter_render_occupancy', 'crafter_daylight'):
       getattr(lib, fn).restype = i32
     _lib = lib
   return _lib

@@ -100,9 +100,12 @@ def noise3(points: torch.Tensor, seed) -> torch.Tensor:
     seed_all = ((int(seed) + 2 ** 31) % 2 ** 32) - 2 ** 31
     seeds_ptr = None
   out = torch.empty(pts.shape[0], dtype=torch.float32, device=pts.device)
+  # 16-byte loads where every pointer allows them.
+  vec = int(all(p % 16 == 0 for p in (pts.data_ptr(), out.data_ptr(),
+                                      seeds_ptr or 0)))
   lib = _build.library()
   _build.check(lib.crafter_noise3(
-      pts.data_ptr(), seeds_ptr, seed_all, out.data_ptr(), pts.shape[0],
+      pts.data_ptr(), seeds_ptr, seed_all, out.data_ptr(), pts.shape[0], vec,
       noise.F32_STRETCH_3D, noise.F32_SQUISH_3D, noise.F32_INV_NORM_3D,
       _stream(pts)), 'noise3')
   noise3.launches += 1

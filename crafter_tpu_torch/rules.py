@@ -321,6 +321,14 @@ def compile_rules(rules: dict | None = None) -> RuleTables:
 
 
 TABLES = compile_rules()
+_ON_OVERRIDE = []
+
+
+def on_override(clear):
+  """Register ``clear()`` to run whenever :func:`override_rules` swaps the
+  tables; the caches built from them register their ``cache_clear``."""
+  _ON_OVERRIDE.append(clear)
+  return clear
 
 
 def override_rules(mutate) -> RuleTables:
@@ -328,8 +336,10 @@ def override_rules(mutate) -> RuleTables:
 
   The reference customizes rules by mutating ``crafter.constants`` globals
   before constructing envs (run_gui.py:55-56, run_random.py:21-22); the
-  TPU equivalent mutates the rule *data* and recompiles the dense tables.
-  Call before the first jit trace (tables are baked in as constants):
+  port mutates the rule *data* and recompiles the dense tables.  The
+  caches derived from the tables (``step._tables``,
+  ``step_cuda._rules_blob``) are cleared, so the plain step and the
+  kernels read the new rules from the next call on:
 
       rules.override_rules(lambda r: r['items']['health'].update(
           max=5, initial=5))
@@ -338,4 +348,6 @@ def override_rules(mutate) -> RuleTables:
   data = default_rules()
   mutate(data)
   TABLES = compile_rules(data)
+  for clear in _ON_OVERRIDE:
+    clear()
   return TABLES

@@ -12,15 +12,13 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import pathlib
 
 import numpy as np
 import torch
 
-from . import rules
+from . import _build, rules
 from .config import EnvConfig
-
-ASSETS = pathlib.Path(__file__).parent / 'assets'
+from .ops.fma import cos32, fma32
 
 
 @dataclasses.dataclass
@@ -63,44 +61,49 @@ class State:
   chunk_touched: torch.Tensor    # (N, ncx, ncy) bool
 
 
-@functools.lru_cache(maxsize=None)
-def _daylight_table(device: str):
-  """The committed light table (``assets/daylight.npz``) as
-  ``(day_length, (T,) float32 tensor)``."""
-  with np.load(ASSETS / 'daylight.npz') as f:
-    return int(f['day_length']), torch.as_tensor(f['table'], device=device)
-
-
-def _daylight_computed(step: torch.Tensor, day_length: int) -> torch.Tensor:
-  inv = np.float32(1.0) / np.float32(day_length)
-  progress = torch.remainder(step.to(torch.float32) * float(inv), 1.0) + 0.3
-  c = torch.cos(float(np.float32(np.pi)) * progress).abs()
-  return 1.0 - c * (c * c)
-
-
 def daylight(step: torch.Tensor, day_length: int) -> torch.Tensor:
   """Day/night curve 1 - |cos(pi*((t/300)%1 + 0.3))|^3 (env.py:135-139).
 
   The renderer multiplies pixels by the light and floors, so the light has
-  to be the JAX package's bit for bit, and the same on the CPU and the
-  card.  No float32 cosine at hand gives that (torch's differs from XLA's
-  in the last bits at 39% of the steps), so for the default day length the
-  value is looked up by step in a committed table of the JAX function
-  under ``jax.jit`` (``tools/pack_torch_textures.py``; steps 0..10000, the
-  episode cap).  Another day length, or a step beyond the table, takes the
-  computed form: float32 throughout, the division as a multiply by the
-  float32 reciprocal as XLA rewrites it.  That form agrees with the JAX
-  package wherever the balance reads it (through integer truncations,
-  tests/test_torch_step.py) but not in every bit.
+  to be the JAX package's under ``jax.jit`` bit for bit, and the same on
+  the CPU and the card.  CPU steps take :func:`daylight_plain`; int32 steps
+  on the card one launch of ``csrc/daylight.cu``, the same arithmetic.
   """
-  tab_len, table = _daylight_table(str(step.device))
-  if day_length != tab_len:
-    return _daylight_computed(step, day_length)
-  last = table.shape[0] - 1
-  # Both forms and a select: no host read of the steps, so no device sync.
-  return torch.where((step >= 0) & (step <= last),
-                     table[step.clamp(0, last).long()],
-                     _daylight_computed(step, day_length))
+  if not step.is_cuda:
+    return daylight_plain(step, day_length)
+  if step.dtype != torch.int32:
+    raise TypeError(f'daylight takes int32 steps on the card, not '
+                    f'{step.dtype}')
+  flat = step.reshape(-1)
+  out = torch.empty(flat.shape, dtype=torch.float32, device=step.device)
+  _build.check(_build.library().crafter_daylight(
+      flat.data_ptr(), flat.stride(0), flat.numel(), inv_day(day_length),
+      out.data_ptr(), torch.cuda.current_stream(step.device).cuda_stream),
+      'daylight')
+  daylight.launches += 1
+  return out.reshape(step.shape)
+
+
+daylight.launches = 0
+
+
+def daylight_plain(step: torch.Tensor, day_length: int) -> torch.Tensor:
+  """:func:`daylight` in PyTorch operations.  Every step is XLA's float32
+  arithmetic: the division as a multiply by the float32 reciprocal, the
+  cosine glibc's ``cosf`` (``ops/fma.py:cos32``), and
+  ``1 - |c| * (|c| * |c|)`` with the outer product fused into the
+  subtract.  Equal to the JAX function for every int32 step and day
+  length tested (``tests/test_torch_render.py``)."""
+  progress = torch.remainder(step.to(torch.float32) * inv_day(day_length),
+                             1.0) + 0.3
+  c = cos32(float(np.float32(np.pi)) * progress).abs()
+  return fma32(-c, c * c, 1.0)
+
+
+@functools.lru_cache(maxsize=None)
+def inv_day(day_length: int) -> float:
+  """float32(1) / float32(day_length), the reciprocal XLA multiplies by."""
+  return float(np.float32(1.0) / np.float32(day_length))
 
 
 def semantic_view(state: State, cfg: EnvConfig) -> torch.Tensor:

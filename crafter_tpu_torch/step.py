@@ -154,6 +154,9 @@ def _tables(device: str):
       item_max=i32(t.item_max))
 
 
+rules.on_override(_tables.cache_clear)
+
+
 def _dirvec(idx: torch.Tensor):
   dx = torch.where(idx == 0, -1, torch.where(idx == 1, 1, 0))
   dy = torch.where(idx == 2, -1, torch.where(idx == 3, 1, 0))

@@ -72,6 +72,9 @@ def _rules_blob(device: str) -> torch.Tensor:
   return torch.as_tensor(blob, device=device)
 
 
+rules.on_override(_rules_blob.cache_clear)
+
+
 def _stream(t: torch.Tensor) -> int:
   return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -256,6 +259,17 @@ def occupancy(cfg: EnvConfig, kernel: str = 'group') -> tuple[int, int]:
   return blocks.value, smem.value
 
 
+def balance_occupancy(cfg: EnvConfig) -> tuple[int, int]:
+  """``(blocks per SM, shared bytes per block)`` of the balance kernel for
+  ``cfg``'s area and chunks, from the CUDA occupancy calculator."""
+  blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+  (w, h), (ncx, ncy) = cfg.area, cfg.n_chunks
+  _build.check(_build.library().crafter_balance_occupancy(
+      w, h, ncx * ncy, ctypes.byref(blocks), ctypes.byref(smem)),
+      'balance occupancy')
+  return blocks.value, smem.value
+
+
 def balance(states: State, seeds: torch.Tensor,
             occ_pre: torch.Tensor | None, cfg: EnvConfig) -> State:
   """Chunk balancing (``occ_pre`` None: no earlier occupancy to fold in);
@@ -272,28 +286,49 @@ balance.launches = 0
 
 def _launch_balance(states: State, seeds: torch.Tensor,
                     occ_pre: torch.Tensor | None, cfg: EnvConfig) -> State:
+  """One launch: the kernel reads the state in place (the player's
+  position, the steps and the seeds with their strides; ``occ_pre`` None
+  as a null pointer) and computes the light from the steps itself."""
   w, h = cfg.area
-  if occ_pre is None:
-    occ_pre = torch.zeros_like(states.ent.etype)
   (csx, csy), (ncx, ncy) = cfg.chunk_size, cfg.n_chunks
-  n = states.step.shape[0]
+  n, c = states.step.shape[0], w * h
   dev = states.mat_map.device
-  light = state_lib.daylight(states.step, cfg.day_length)
-  i32 = lambda v: v.to(torch.int32).contiguous()
-  ins = _contig(states.mat_map, states.ent.etype, states.ent.health,
-                states.ent.aux, occ_pre.to(torch.uint8),
-                states.chunk_touched.reshape(n, ncx * ncy))
-  ins += [light.contiguous(), i32(states.player.pos[:, 0]),
-          i32(states.player.pos[:, 1]), i32(seeds)]
-  etype = torch.empty_like(ins[1])
-  health = torch.empty_like(ins[2])
-  aux = torch.empty_like(ins[3])
-  touched = torch.empty_like(ins[5])
-  lib = _build.library()
-  _build.check(lib.crafter_balance(
-      *[t.data_ptr() for t in (*ins, etype, health, aux, touched)],
-      n, w, h, csx, csy, ncx, ncy, _stream(etype)), 'balance')
+  ent, pos = states.ent, states.player.pos
+  # (name, tensor, dtypes, shape, must be contiguous)
+  for name, t, dtypes, shape, dense in (
+      ('mat_map', states.mat_map, (torch.uint8,), (n, c), True),
+      ('etype', ent.etype, (torch.uint8,), (n, c), True),
+      ('health', ent.health, (torch.uint8,), (n, c), True),
+      ('aux', ent.aux, (torch.int16,), (n, c), True),
+      ('occ_pre', occ_pre, (torch.uint8, torch.bool), (n, c), True),
+      ('chunk_touched', states.chunk_touched, (torch.bool,), (n, ncx, ncy),
+       True),
+      ('step', states.step, (torch.int32,), (n,), False),
+      ('pos', pos, (torch.int32,), (n, 2), False),
+      ('seeds', seeds, (torch.int32,), (n,), False)):
+    if t is None:
+      continue
+    if t.device != dev or t.dtype not in dtypes or tuple(t.shape) != shape:
+      raise TypeError(f'balance: {name} is {t.dtype} {tuple(t.shape)} on '
+                      f'{t.device}; want {dtypes[0]} {shape} on {dev}')
+    if dense and not t.is_contiguous():
+      raise TypeError(f'balance: {name} must be contiguous')
+  etype = torch.empty_like(ent.etype)
+  health = torch.empty_like(ent.health)
+  aux = torch.empty_like(ent.aux)
+  touched = torch.empty_like(states.chunk_touched)
+  ptrs = [t.data_ptr() for t in (states.mat_map, ent.etype, ent.health,
+                                 ent.aux, etype, health, aux)]
+  occ_ptr = None if occ_pre is None else occ_pre.data_ptr()
+  # 16-byte loads and stores of a column's 16 cells where all allow them.
+  vec = int(h % 16 == 0 and all(p % 16 == 0 for p in ptrs + [occ_ptr or 0]))
+  _build.check(_build.library().crafter_balance(
+      *ptrs[:4], occ_ptr, states.chunk_touched.data_ptr(),
+      states.step.data_ptr(), states.step.stride(0), pos.data_ptr(),
+      pos.stride(0), pos.stride(1), seeds.data_ptr(), seeds.stride(0),
+      *ptrs[4:], touched.data_ptr(), n, w, h, csx, csy, ncx, ncy, vec,
+      state_lib.inv_day(cfg.day_length), _stream(etype)), 'balance')
   return dataclasses.replace(
-      states, ent=dataclasses.replace(states.ent, etype=etype, health=health,
+      states, ent=dataclasses.replace(ent, etype=etype, health=health,
                                       aux=aux),
-      chunk_touched=touched.reshape(n, ncx, ncy))
+      chunk_touched=touched)

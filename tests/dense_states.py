@@ -209,3 +209,28 @@ def tick_events(before, after, area, update_distance):
     hits += ((e0['etype'] == rules.E_ARROW) & (e0['facing'] == d)
              & (pdist < update_distance - 1) & inside & held).sum(1)
   return shots, strikes, hits
+
+
+def balance_states(n, seed, area=(64, 64), chunk_size=(12, 12), base=64):
+  """``n`` states for the balance kernel's checks: :func:`dense_states`
+  (``base`` of them, tiled) with steps past 10000 (day and night at a day
+  length of 200 or 300), ``chunk_touched`` for ``chunk_size`` with seven
+  chunks in ten touched, and a third of the worlds all grass, so that the
+  spawn picks land on every rank of a full chunk's members."""
+  rs = np.random.RandomState(seed)
+  tree = dense_states(min(n, base), seed, area)
+  reps = -(-n // min(n, base))
+
+  def tile(t):
+    if isinstance(t, dict):
+      return {k: tile(v) for k, v in t.items()}
+    return np.ascontiguousarray(np.concatenate([t] * reps)[:n])
+
+  tree = tile(tree)
+  ncx, ncy = (math.ceil(a / c) for a, c in zip(area, chunk_size))
+  tree['chunk_touched'] = rs.rand(n, ncx, ncy) < 0.7
+  tree['step'] = rs.randint(10001, 30000, n).astype(np.int32)
+  tree['key'] = rs.randint(0, 2 ** 32, (n, 2),
+                           dtype=np.uint64).astype(np.uint32)
+  tree['mat_map'][rs.rand(n) < 1 / 3] = rules.MAT_GRASS
+  return tree

@@ -4,7 +4,10 @@ Marked ``cuda``: they need an NVIDIA GPU and nvcc and skip without them.
 Run on a GPU machine with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 The group and tick kernels are held on states stepped from fresh worlds,
 on states packed with entities (``dense_states.py``, at 64 x 64 and on the
-generic instantiation at 48 x 48) and on the hand-built scenes.
+generic instantiation at 48 x 48) and on the hand-built scenes; the balance
+kernel on such states at several chunk sizes and areas, the 3-D noise on
+point counts, seeds and distances from the origin that reach each of its
+branches.
 Tolerance: none (bitwise), for every kernel.  The training step on the
 card is held to its own checks (counts, finite metrics, launches): its
 policy runs cuDNN's bfloat16 kernels, which no CPU run reproduces bit for
@@ -22,6 +25,7 @@ from crafter_tpu_torch import convert
 from crafter_tpu_torch import step as step_lib
 from crafter_tpu_torch import render_cuda, step_cuda, worldgen
 from crafter_tpu_torch.ops import noise, noise_cuda, roll_cuda
+from crafter_tpu_torch import state as state_lib
 from crafter_tpu_torch.state import leaves
 import dense_states
 
@@ -350,6 +354,119 @@ def test_noise3_kernel_matches_plain_twin(dev):
   assert torch.equal(noise_cuda.noise3(grid, seeds[:3, None]),
                      noise.noise3_fast(grid, seeds[:3, None]))
   assert noise_cuda.noise3.launches == before + 4
+
+
+@pytest.mark.parametrize('n', [1, 13, 4099])
+def test_noise3_kernel_sizes_and_seeds_match_twin(dev, n):
+  """Point counts that do not fill a thread's four, one seed and a seed a
+  point, and points read from an unaligned view (the scalar loads)."""
+  gen = torch.Generator(device=dev)
+  gen.manual_seed(60 + n)
+  pts = (torch.rand(n + 1, 3, generator=gen, device=dev) - 0.5) * 200
+  seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (n + 1,), generator=gen,
+                        device=dev, dtype=torch.int32)
+  for p, sd in ((pts[:n], seeds[:n]), (pts[1:], seeds[1:]),
+                (pts[:n], -123456789), (pts[1:], 2 ** 31 - 1)):
+    assert torch.equal(noise_cuda.noise3(p, sd), noise.noise3_fast(p, sd))
+
+
+@pytest.mark.parametrize('scale', [2.0 ** 22, 2.0 ** 24])
+def test_noise3_far_points_match_twin(dev, scale):
+  """Points around and beyond 2^22 of the origin, where the kernel leaves
+  its round-down additions for the conversions: still the twin's bits."""
+  gen = torch.Generator(device=dev)
+  gen.manual_seed(61)
+  n = 40003
+  sign = torch.randint(0, 2, (n, 3), generator=gen, device=dev) * 2 - 1
+  pts = sign * (scale + (torch.rand(n, 3, generator=gen, device=dev) - 0.5)
+                * scale / 4)
+  pts[: n // 2] = sign[: n // 2] * (2.0 ** 22 + torch.randint(
+      -64, 64, (n // 2, 3), generator=gen, device=dev).float())
+  seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), generator=gen,
+                        device=dev, dtype=torch.int32)
+  for sd in (seeds, 99):
+    assert torch.equal(noise_cuda.noise3(pts, sd), noise.noise3_fast(pts, sd))
+
+
+# (area, chunk size): the default; the largest chunk the configuration
+# check accepts (16 x 16 is 256 cells, beyond the 8-bit counts); a ragged
+# odd one; heights that are no multiple of 16 (the kernel's generic loads).
+BALANCE_CASES = [((64, 64), (12, 12)), ((64, 64), (16, 15)),
+                 ((64, 64), (5, 7)), ((48, 40), (12, 12)),
+                 ((37, 29), (5, 7))]
+
+
+@pytest.mark.parametrize('n', [1, 13, 4096])
+@pytest.mark.parametrize('area,chunk', BALANCE_CASES, ids=str)
+def test_balance_kernel_matches_twin(dev, n, area, chunk):
+  """The balance kernel on dense states at day length 200 with steps past
+  10000, a third of the worlds all grass, with and without an occupancy
+  plane: every leaf the twin's, and the input state untouched."""
+  cfg = ct.EnvConfig(area=area, chunk_size=chunk, day_length=200)
+  states = convert.state_from_numpy(
+      dense_states.balance_states(n, 70 + n, area, chunk), dev)
+  keep = [t.clone() for _, t in leaves(states)]
+  seeds = step_lib.tick_seeds(states.key, states.step)[2]
+  gen = torch.Generator(device=dev)
+  gen.manual_seed(n)
+  occ = (torch.rand(states.ent.etype.shape, generator=gen, device=dev)
+         < 0.05).to(torch.uint8)
+  before = step_cuda.balance.launches
+  for o in (None, occ):
+    got = step_cuda.balance(states, seeds, o, cfg)
+    _assert_equal(got, step_lib.balance_plain(states, seeds, o, cfg))
+    if n > 1:
+      assert bool((got.ent.etype != states.ent.etype).any())
+  assert step_cuda.balance.launches == before + 2
+  for (name, t), k in zip(leaves(states), keep):
+    assert torch.equal(t, k), name
+
+
+def test_balance_wrapper_reads_strided_inputs_and_checks(dev):
+  """The player's position, the steps and the seeds are read with their
+  strides; a wrong dtype or a strided plane raises."""
+  cfg = ct.EnvConfig()
+  states = convert.state_from_numpy(dense_states.balance_states(64, 5), dev)
+  seeds = step_lib.tick_seeds(states.key, states.step)[2]
+  want = step_lib.balance_plain(states, seeds, None, cfg)
+  wide = torch.zeros((64, 5), dtype=torch.int32, device=dev)
+  wide[:, 1:3] = states.player.pos
+  spread = torch.zeros((64, 2), dtype=torch.int32, device=dev)
+  spread[:, 0], spread[:, 1] = seeds, states.step
+  odd = dataclasses.replace(
+      states, step=spread[:, 1],
+      player=dataclasses.replace(states.player, pos=wide[:, 1:3]))
+  got = step_cuda.balance(odd, spread[:, 0], None, cfg)
+  _assert_equal(got.ent, want.ent)
+  assert torch.equal(got.chunk_touched, want.chunk_touched)
+  with pytest.raises(TypeError, match='seeds'):
+    step_cuda.balance(states, seeds.long(), None, cfg)
+  strided = dataclasses.replace(states, mat_map=torch.cat(
+      [states.mat_map, states.mat_map], 1)[:, ::2])
+  with pytest.raises(TypeError, match='contiguous'):
+    step_cuda.balance(strided, seeds, None, cfg)
+  blocks, smem = step_cuda.balance_occupancy(cfg)
+  assert blocks >= 4 and smem < 8 * 1024, (blocks, smem)
+
+
+@pytest.mark.parametrize('day_length', [200, 300])
+def test_daylight_on_card_equals_cpu(dev, day_length):
+  """The daylight kernel and the plain form on the card, both equal to the
+  CPU's, on steps 0..20000, negative and extreme ones, and a strided view."""
+  steps = torch.cat([torch.arange(0, 20001, dtype=torch.int32),
+                     torch.arange(-300, 0, dtype=torch.int32),
+                     torch.tensor([2 ** 31 - 1, -2 ** 31], dtype=torch.int32)])
+  want = ct.daylight(steps, day_length)
+  before = ct.daylight.launches
+  assert torch.equal(ct.daylight(steps.to(dev), day_length).cpu(), want)
+  assert ct.daylight.launches == before + 1
+  assert torch.equal(
+      state_lib.daylight_plain(steps.to(dev), day_length).cpu(), want)
+  grid = steps[:20000].to(dev).reshape(100, 200)
+  assert torch.equal(ct.daylight(grid[:, ::3], day_length).cpu(),
+                     want[:20000].reshape(100, 200)[:, ::3])
+  with pytest.raises(TypeError, match='int32'):
+    ct.daylight(steps.to(dev).long(), day_length)
 
 
 @pytest.mark.parametrize('kind', roll_cuda.KINDS)

@@ -1,10 +1,12 @@
 """The port's renderer against the JAX package's, module by module.
 
-* the committed data files (decoded textures, daylight table) against their
-  sources;
+* the committed textures against their PNGs;
 * the baked atlas against the JAX ``bake_atlas`` for two render sizes (the
   port's per-pixel source index against ``argmax`` of the one-hot ``expand``);
-* ``daylight`` for steps 0..10000 against the jitted JAX function;
+* the port's float32 cosine against ``jax.jit(jnp.cos)`` on every float32
+  of the daylight's domain, and ``daylight`` for steps 0..20000 at two day
+  lengths (and negative and extreme int32 steps) against the jitted JAX
+  function;
 * ``noise_seed``, ``pack_cells``, ``window_prep`` against the JAX functions;
 * ``render_frames`` in its three output formats against the JAX
   ``render_frames`` run as its Pallas kernel in interpret mode, on one batch
@@ -17,9 +19,9 @@
 Tolerance everywhere: none (every byte equal).
 """
 
-import pathlib
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -30,7 +32,7 @@ from crafter_tpu.config import EnvConfig as JaxConfig
 import crafter_tpu_torch as ct
 from crafter_tpu_torch import render as render_lib
 from crafter_tpu_torch import render_cuda, rules
-from crafter_tpu_torch import state as state_lib
+from crafter_tpu_torch.ops.fma import cos32
 from one_thread import one_torch_thread  # noqa: F401
 
 CFG = ct.EnvConfig()
@@ -53,22 +55,39 @@ def test_textures_npz_equals_pngs():
     np.testing.assert_array_equal(tex[p.stem], jrender._load(p.stem))
 
 
-def test_daylight_equals_jitted_jax():
-  steps = np.arange(0, 10001, dtype=np.int32)
-  ref = np.asarray(jax.jit(lambda s: jstate.daylight(s, 300))(steps))
-  ours = ct.daylight(T(steps), 300).numpy()
+def test_cos32_equals_jitted_jax():
+  """Every float32 in [float32(pi) * 0.3, float32(pi) * 1.3], the cosine's
+  arguments in ``daylight``, and a sample of |x| < 120 (both glibc
+  branches): bit for bit."""
+  pi = np.float32(np.pi)
+  lo = (pi * np.float32(0.3)).view(np.int32)
+  hi = (pi * np.float32(1.3)).view(np.int32)
+  jcos = jax.jit(jnp.cos)
+  chunk = 1 << 21
+  for start in range(int(lo), int(hi) + 1, chunk):
+    x = np.arange(start, min(start + chunk, int(hi) + 1),
+                  dtype=np.int32).view(np.float32)
+    ours = cos32(T(x)).numpy()
+    assert ours.dtype == np.float32
+    np.testing.assert_array_equal(ours.view(np.int32),
+                                  np.asarray(jcos(x)).view(np.int32))
+  wide = np.arange(0, 0x42F00000, 997, dtype=np.int32).view(np.float32)
+  wide = np.concatenate([wide, -wide])
+  np.testing.assert_array_equal(cos32(T(wide)).numpy().view(np.int32),
+                                np.asarray(jcos(wide)).view(np.int32))
+
+
+@pytest.mark.parametrize('day_length', [200, 300])
+def test_daylight_equals_jitted_jax(day_length):
+  steps = np.arange(0, 20001, dtype=np.int32)
+  rng = np.random.default_rng(day_length)
+  steps = np.concatenate([steps, np.arange(-300, 0, dtype=np.int32),
+                          rng.integers(-2 ** 31, 2 ** 31, 4096,
+                                       dtype=np.int64).astype(np.int32)])
+  ref = np.asarray(jax.jit(lambda s: jstate.daylight(s, day_length))(steps))
+  ours = ct.daylight(T(steps), day_length).numpy()
   assert ours.dtype == np.float32
-  np.testing.assert_array_equal(ours, ref)
-  # Beyond the table and at another day length the computed form serves;
-  # it stays within float32 rounding of the reference.
-  far = np.arange(10001, 12000, dtype=np.int32)
-  np.testing.assert_allclose(
-      ct.daylight(T(far), 300).numpy(),
-      np.asarray(jax.jit(lambda s: jstate.daylight(s, 300))(far)), atol=1e-6)
-  np.testing.assert_allclose(
-      ct.daylight(T(steps), 250).numpy(),
-      np.asarray(jax.jit(lambda s: jstate.daylight(s, 250))(steps)),
-      atol=1e-6)
+  np.testing.assert_array_equal(ours.view(np.int32), ref.view(np.int32))
 
 
 @pytest.mark.parametrize('size', [(64, 64), (512, 512)], ids=str)
@@ -315,7 +334,6 @@ def test_compact_tables_layout():
 
 def _fma_frames():
   """The frames of :func:`test_fused_multiply_adds_placed_as_xla`."""
-  table = np.load(pathlib.Path(state_lib.ASSETS) / 'daylight.npz')['table']
   picks = {101: [961, 113, 187, 298], 104: [219, 598, 121, 536]}
   win, light, seeds = [], [], []
   for seed, rows in picks.items():
@@ -328,7 +346,7 @@ def _fma_frames():
     steps = rs.randint(160, 262, size=1024).astype(np.int32)
     sd = rs.randint(-2 ** 31, 2 ** 31 - 1, size=1024).astype(np.int32)
     win.append(w[rows])
-    light.append(table[steps][rows])
+    light.append(ct.daylight(T(steps[rows]), 300).numpy())
     seeds.append(sd[rows])
   win, light, seeds = map(np.concatenate, (win, light, seeds))
   return win, light, np.zeros(len(win), np.int32), seeds

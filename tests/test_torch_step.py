@@ -7,7 +7,8 @@ kernels, plus hand-built scenes from tests/test_step.py.
   unrolls its tick loop, and interpret-mode compile time grows steeply
   with it; the tick code is the same for any K.
 * ``balance_plain`` against ``_balance_pallas`` in interpret mode, with an
-  injected occupancy plane, at night so the pass spawns.
+  injected occupancy plane, at night so the pass spawns; and at a day
+  length of 200 with steps past 10000.
 * The hash primitives and the daylight thresholds against JAX.
 
 Tolerance everywhere: none (bitwise, rewards included).
@@ -86,8 +87,7 @@ def test_tick_seeds_and_hashes():
 
 def test_daylight_thresholds_match_jax():
   """The balance reads daylight only through int(3.5 - 3 * light) and
-  int(1.5 + light); those agree with JAX at every step checked, even where
-  the cosine differs in its last bits."""
+  int(1.5 + light); those agree with JAX at every step checked."""
   steps = np.arange(0, 60000, dtype=np.int32)
   ref = jax.jit(lambda s: jnp.stack([
       (3.5 - 3 * jstate.daylight(s, 300)).astype(jnp.int32),
@@ -138,6 +138,28 @@ def test_balance_matches_balance_pallas(fresh13):
   # On CPU tensors the kernel wrapper is the plain twin.
   again = step_cuda.balance(ours_in, seeds, occ_t, CFG)
   _assert_same(convert.to_numpy(again), _to_numpy(ref))
+
+
+def test_balance_matches_balance_pallas_past_step_10000(fresh13):
+  """At a day length of 200 and steps past 10000 (where the light was once
+  off its table), day and night, with an occupancy plane."""
+  jcfg, cfg = JaxConfig(day_length=200), EnvConfig(day_length=200)
+  steps = np.array([10001, 10100, 10150, 10199, 12345, 15020, 19990, 20000,
+                    29999, 10050, 10075, 11111, 13131], np.int32)
+  env = fresh13.replace(step=jnp.asarray(steps))
+  s_bal = jax.vmap(lambda kk, s: jstep._tick_seeds(kk, s)[2])(env.key,
+                                                              env.step)
+  occ = jax.random.bernoulli(jax.random.key(10), 0.1,
+                             env.mat_map.shape).astype(jnp.uint8)
+  ref = jax.jit(lambda e, s, o: jstep._balance_pallas(e, s, o, jcfg))(
+      env, s_bal, occ)
+  ours_in = convert.state_from_numpy(_to_numpy(env), 'cpu')
+  ours = step_lib.balance_plain(ours_in, torch.from_numpy(np.array(s_bal)),
+                                torch.from_numpy(np.array(occ)), cfg)
+  _assert_same(convert.to_numpy(ours), _to_numpy(ref))
+  assert (ours.ent.etype != ours_in.ent.etype).sum() > 0
+  light = state_lib.daylight(torch.from_numpy(steps), 200)
+  assert bool((light < 0.5).any() and (light > 0.5).any())
 
 
 # --- hand-built scenes (tests/test_step.py), one tick at a time ----------

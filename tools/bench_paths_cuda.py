@@ -10,8 +10,8 @@ are built there at first use) and, at 4096 envs, times groups of
 ``VecEnv.step`` calls (``reset_batch`` 32) between CUDA events after a
 warm-up, then profiles 3 groups of each and 6 ticks (``torch.profiler``):
 wall and device-busy ms, and the device time of the group and tick
-kernels, the render kernel and the 2-D noise kernel.  Prints one JSON line
-with the card's name and power limit.  Needs a GPU.
+kernels, the render kernel, the 2-D noise kernel and the balance kernel.
+Prints one JSON line with the card's name and power limit.  Needs a GPU.
 """
 
 import argparse
@@ -79,8 +79,9 @@ def main():
             'tick_kernels_ms': per_rep('tick_kernel'),
             'render_kernel_ms': per_rep('render_kernel'),
             'noise2_kernel_ms': per_rep('noise2'),
+            'balance_kernel_ms': per_rep('balance_kernel'),
             'recorded_per_call': {name: seen(name) for name in (
-                'tick_kernel', 'render_kernel', 'noise2')}}
+                'tick_kernel', 'render_kernel', 'noise2', 'balance_kernel')}}
 
   box = [ct.vec_reset_chunked(ct.home_keys(0, N_ENVS, dev), cfg)]
 
