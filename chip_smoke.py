@@ -34,9 +34,10 @@ Run from the repository root on a machine with an NVIDIA H100:
    kernel on those frames' steps against its plain form; the 3-D noise on
    the 3-D form of that reset pass's points
    (each channel's z as the third coordinate) and the roll micro-bench
-   kernel on (40960, 4096) int32 rows, all three kinds at 10 and 40 stages,
-   its 'roll' kind at 10 stages timed over ROLL_REPEATS repeats by events
-   and by the profiler against its bound.
+   kernel on (40960, 4096) int32 rows, all three kinds at 10 and 40 stages
+   (each kind's blocks per SM, shared memory a block and ring depth
+   printed), its 'roll' kind at 10 stages timed over ROLL_REPEATS repeats by
+   events and by the profiler against its bound.
    Integer outputs, rewards and frame bytes must be bitwise equal; noise
    must be bitwise equal or within NOISE_ATOL (the count of differing
    points is printed), with no material of the 320 worlds flipped.
@@ -54,13 +55,17 @@ Run from the repository root on a machine with an NVIDIA H100:
    count its updates and steps, keep every metric finite and change every
    layer's parameters.  The two kernels that no entry point of the package
    reaches are driven through what their users call: ``noise_cuda.noise3``
-   itself and ``tools/bench_roll_cuda.py``.  The worlds of one reset pass
-   are made on the CPU too, and every leaf must equal the card's.
+   itself and ``tools/bench_roll_cuda.py``.  Then the port's bench,
+   ``bench_cuda.py`` at its defaults (its JSON line printed, every env
+   stepped or reset in each repeat, its kernels launched).  The worlds of
+   one reset pass are made on the CPU too, and every leaf must equal the
+   card's.
 4. Runs the kernel path and the plain path on the card, and the CPU path,
    at 13 envs across episode ends and requires every leaf and frame equal:
    3 groups state-only, 3 groups of the pixel path, 30 ticks of ``VecEnv``
-   (card and CPU); ``daylight`` on the card (its kernel) must equal the
-   CPU's for steps 0..20000 at day lengths 200 and 300; the policy's
+   (card and CPU), and ``Env`` over two episodes of 30 ticks with a render
+   at 512x512 (card and CPU); ``daylight`` on the card (its kernel) must
+   equal the CPU's for steps 0..20000 at day lengths 200 and 300; the policy's
    forward on the card must agree with the CPU's within POLICY_ATOL; and a
    training state saved on the card, restored and stepped must equal the
    one stepped without the round trip.
@@ -722,6 +727,13 @@ def main():
   # No one PyTorch call computes ten masked stages, so the row has no
   # library time; one torch.roll of the rows (one stage's rotate) is timed
   # to price a rotate.
+  for roll_kind in roll_cuda.KINDS:
+    blocks, smem, depth = roll_cuda.occupancy(roll_kind)
+    print(f'occupancy: roll kernel, {roll_kind}: {blocks} blocks of 256 '
+          f'threads per SM, {smem} bytes of shared memory a block, a ring of '
+          f'{depth} rows', flush=True)
+    if blocks == 0:
+      fail(f'the roll kernel cannot run for {roll_kind}')
   x = torch.randint(0, 1 << 24, (ROLL_ROWS, roll_cuda.COLS), generator=gen,
                     device=dev, dtype=torch.int32)
   roll_ms = {}
@@ -1074,6 +1086,21 @@ def main():
   tool_counts = read_counts('noise3 and roll tool', ('noise3', 'roll'))
   del pts2, field
 
+  # 3f. The port's bench at its defaults (4096 envs, scans of 400 ticks
+  # state-only and 200 pixel, three repeats; its every-env check on each):
+  # its JSON line, and the kernels it went through.
+  torch.cuda.empty_cache()
+  zero_counts()
+  bench = runpy.run_path(str(root / 'bench_cuda.py'), run_name='bench_cuda')
+  bench_rec = bench['main']([])
+  bench_counts = read_counts('bench', ('group_tick', 'balance', 'noise2',
+                                      'render_win79', 'daylight'))
+  if not (bench_rec['value'] > 0 and bench_rec['pixel_value'] > 0):
+    fail(f'bench: {bench_rec}')
+  print(f'bench_cuda.py on {card}: launches {bench_counts}', flush=True)
+  del bench
+  torch.cuda.empty_cache()
+
   # 4. Kernel path == plain path on the card == the CPU, across episode
   # ends, at 13 envs: state-only groups, pixel groups, VecEnv ticks.
   small = dataclasses.replace(cfg, length=25)
@@ -1126,6 +1153,37 @@ def main():
       fail(f'VecEnv.step: the card and the CPU differ at tick {t}')
   print(f'13 envs x 30 VecEnv ticks: card == CPU, obs, reward, done and '
         f'info ({int(ea.state.episode.sum())} episodes begun)', flush=True)
+
+  # Env, the single-env Gym surface, on the card against the CPU: two
+  # episodes of 30 ticks, frames, rewards, flags and info equal, and one
+  # render at 512x512 (the render kernel's global instantiation).
+  zero_counts()
+  ga = ct.Env(seed=5, length=30, device=dev)
+  gc = ct.Env(seed=5, length=30, device='cpu')
+  if not (ga.reset() == gc.reset()).all():
+    fail('Env.reset: the card and the CPU differ')
+  episodes, ticks = 0, 0
+  while episodes < 2:
+    action = int(draw(1)[0, 0])
+    (oa, ra, da, ia), (oc, rc, dc, ic) = ga.step(action), gc.step(action)
+    same = (oa == oc).all() and (ra, da) == (rc, dc) and ia.keys() == ic.keys()
+    for name, value in ic.items():
+      same = same and (bool((ia[name] == value).all())
+                       if hasattr(value, 'shape') else ia[name] == value)
+    if not same:
+      fail(f'Env.step: the card and the CPU differ at tick {ticks}')
+    ticks += 1
+    if da:
+      episodes += 1
+      if not (ga.reset() == gc.reset()).all():
+        fail('Env.reset: the card and the CPU differ after an episode')
+  if not (ga.render((512, 512)) == gc.render((512, 512))).all():
+    fail('Env.render at 512x512: the card and the CPU differ')
+  env_counts = read_counts('Env', ('tick', 'render_win79', 'noise2'))
+  print(f'Env, {ticks} ticks over 2 episodes and a 512x512 render: card == '
+        f'CPU, obs, reward, done and info (launches {env_counts})',
+        flush=True)
+  del ga, gc
 
   all_steps = torch.arange(0, 20001, dtype=torch.int32)
   for day_length in (200, 300):
@@ -1228,9 +1286,11 @@ def main():
                           'per_tick': tick_sps, 'training': ppo_sps},
       'training_ms': {'update': ppo_ms, 'rollout': ppo_rollout_ms,
                       'learn': ppo_ms - ppo_rollout_ms},
+      'bench': bench_rec,
       'launches_by_path': {'state_only': state_counts, 'pixel': pixel_counts,
                            'per_tick': tick_counts, 'training': ppo_counts,
-                           'noise3_and_roll_tool': tool_counts}}))
+                           'noise3_and_roll_tool': tool_counts,
+                           'bench': bench_counts, 'env': env_counts}}))
   print(card)
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

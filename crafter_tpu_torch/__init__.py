@@ -12,18 +12,21 @@ worldgen noise as CUDA kernels (``step_cuda.py``, ``render_cuda.py``,
 them; and training on top of the per-tick path: ``PPO`` / ``PPOConfig``
 (``ppo.py``) with the ``CnnPolicy`` (``models/cnn.py``), ``checkpoint.py``,
 ``recorder.py`` / ``analysis.py`` and the CLI ``python -m
-crafter_tpu_torch.run_train``.  Entry points run on ``cuda`` unless given
-``device='cpu'``.
+crafter_tpu_torch.run_train``; and the reference's single-env surfaces:
+``Env`` (Gym API), ``GymnasiumEnv``, ``register_gym_envs`` and the
+recorders.  Entry points run on ``cuda`` unless given ``device='cpu'``.
 """
 
 from . import prng, render, rules
 from .config import DEFAULT_CONFIG, EnvConfig
 from .convert import state_from_numpy, to_numpy
-from .env import (CrafterEnv, VecEnv, VecState, home_keys, vec_reset,
-                  vec_reset_chunked, vec_step, vec_step_group,
-                  vec_step_group_obs, vec_step_k)
+from .env import (CrafterEnv, Env, GymnasiumEnv, VecEnv, VecState,
+                  home_keys, register_gym_envs, vec_reset, vec_reset_chunked,
+                  vec_step, vec_step_group, vec_step_group_obs, vec_step_k)
 from .models import CnnPolicy, PolicyOutput
 from .ppo import PPO, PPOConfig, PPOState, Transition
+from .recorder import (EpisodeRecorder, Recorder, StatsRecorder,
+                       VecStatsRecorder, VideoRecorder)
 from .render import (Atlas, bake_atlas, frame_image, noise_seed, pack_cells,
                      render_fields, render_frames, render_px_fields,
                      render_win79_plain, window_prep)
@@ -35,12 +38,14 @@ from .step_cuda import balance, group_tick, tick
 from .worldgen import generate_world
 
 __all__ = [
-    'Atlas', 'CnnPolicy', 'CrafterEnv', 'DEFAULT_CONFIG', 'EntMaps',
-    'EnvConfig', 'GroupSnaps', 'PPO', 'PPOConfig', 'PPOState', 'Player',
-    'PolicyOutput', 'State', 'StepOut', 'Transition', 'VecEnv', 'VecState',
-    'bake_atlas', 'balance', 'balance_plain', 'daylight', 'finish_tick',
-    'frame_image', 'generate_world', 'group_tick', 'home_keys', 'noise_seed',
-    'pack_cells', 'prng', 'render', 'render_fields', 'render_frames',
+    'Atlas', 'CnnPolicy', 'CrafterEnv', 'DEFAULT_CONFIG', 'EntMaps', 'Env',
+    'EnvConfig', 'EpisodeRecorder', 'GroupSnaps', 'GymnasiumEnv', 'PPO',
+    'PPOConfig', 'PPOState', 'Player', 'PolicyOutput', 'Recorder', 'State',
+    'StatsRecorder', 'StepOut', 'Transition', 'VecEnv', 'VecState',
+    'VecStatsRecorder', 'VideoRecorder', 'bake_atlas', 'balance',
+    'balance_plain', 'daylight', 'finish_tick', 'frame_image',
+    'generate_world', 'group_tick', 'home_keys', 'noise_seed', 'pack_cells',
+    'prng', 'register_gym_envs', 'render', 'render_fields', 'render_frames',
     'render_px_fields', 'render_win79', 'render_win79_plain', 'rules',
     'semantic_view', 'state_from_numpy', 'step_batch', 'step_group_plain',
     'tick', 'tick_plain', 'to_numpy', 'vec_reset', 'vec_reset_chunked',

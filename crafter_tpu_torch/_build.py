@@ -109,6 +109,7 @@ def library() -> ctypes.CDLL:
     lib.crafter_noise3.argtypes = [vp, vp, i32, vp, i64, i32, f32, f32, f32,
                                    vp]
     lib.crafter_roll.argtypes = [vp, vp, i64, i32, i32, vp]
+    lib.crafter_roll_occupancy.argtypes = [i32] + [ctypes.POINTER(i32)] * 3
     lib.crafter_group_tick.argtypes = [vp] * 24 + [i32] * 6 + [vp]
     lib.crafter_tick.argtypes = [vp] * 16 + [i32] * 4 + [vp]
     lib.crafter_tick_occupancy.argtypes = [i32] * 4 + [ctypes.POINTER(i32)] * 2
@@ -124,7 +125,8 @@ def library() -> ctypes.CDLL:
     lib.crafter_error_string.argtypes = [i32]
     lib.crafter_error_string.restype = ctypes.c_char_p
     for fn in ('crafter_noise2', 'crafter_noise2_shared', 'crafter_noise3',
-               'crafter_roll', 'crafter_group_tick', 'crafter_tick',
+               'crafter_roll', 'crafter_roll_occupancy', 'crafter_group_tick',
+               'crafter_tick',
                'crafter_tick_occupancy', 'crafter_balance',
                'crafter_balance_occupancy', 'crafter_render',
                'crafter_render_occupancy', 'crafter_daylight'):

@@ -3,8 +3,10 @@ stepped a balance-cadence group at a time (state only, or with one frame a
 tick) or a tick at a time.
 
 The port's counterpart of ``crafter_tpu/env.py``: ``CrafterEnv`` (the
-functional core over batched states), ``VecState``, ``home_keys``,
-``vec_reset``, ``vec_reset_chunked``, the group paths ``vec_step_group`` and
+functional core over batched states), the reference's single-env Gym API
+``Env`` with its gymnasium adapter ``GymnasiumEnv`` and
+``register_gym_envs``, ``VecState``, ``home_keys``, ``vec_reset``,
+``vec_reset_chunked``, the group paths ``vec_step_group`` and
 ``vec_step_group_obs``, the per-tick ``vec_step`` / ``vec_step_k`` and
 ``VecEnv``.  For the same keys and actions it produces the JAX package's
 states, results and frames leaf for leaf.
@@ -31,9 +33,15 @@ from . import step_cuda, worldgen
 from .config import DEFAULT_CONFIG, EnvConfig
 from .state import EntMaps, Player, State
 
-# The spaces of the reference's Gym API, as plain records.
-DiscreteSpace = collections.namedtuple('DiscreteSpace', 'n')
-BoxSpace = collections.namedtuple('BoxSpace', 'low, high, shape, dtype')
+try:  # Mirror the reference's optional gym dependency (env.py:11-22).
+  import gymnasium as _gym
+  DiscreteSpace = _gym.spaces.Discrete
+  BoxSpace = _gym.spaces.Box
+  _GymBase = _gym.Env
+except ImportError:  # the spaces as plain records
+  DiscreteSpace = collections.namedtuple('DiscreteSpace', 'n')
+  BoxSpace = collections.namedtuple('BoxSpace', 'low, high, shape, dtype')
+  _GymBase = object
 
 
 class CrafterEnv:
@@ -87,6 +95,138 @@ class CrafterEnv:
         player_pos=state.player.pos,
         reward=out.reward,
         ended=out.ended)
+
+
+class Env:
+  """Gym-compatible single env mirroring the reference constructor
+  (crafter/env.py:27-29): area/view/size/reward/length/seed, on
+  ``device``.  A batch of one through :class:`CrafterEnv`; observations,
+  rewards and info come back on the host as numpy and Python values."""
+
+  def __init__(self, area=(64, 64), view=(9, 9), size=(64, 64),
+               reward=True, length=10000, seed=None, device='cuda'):
+    view = tuple(view) if hasattr(view, '__len__') else (view, view)
+    size = tuple(size) if hasattr(size, '__len__') else (size, size)
+    seed = np.random.randint(0, 2 ** 31 - 1) if seed is None else seed
+    self.cfg = EnvConfig(area=tuple(area), view=view, size=size,
+                         reward=reward, length=length)
+    self.device = torch.device(device)
+    self._core = CrafterEnv(self.cfg, self.device)
+    self._seed = seed
+    self._episode = 0
+    self._state: Optional[State] = None
+    # Some libraries expect these attributes (env.py:54-56).
+    self.reward_range = None
+    self.metadata = None
+
+  @property
+  def observation_space(self):
+    return BoxSpace(0, 255, tuple(self.cfg.size) + (3,), np.uint8)
+
+  @property
+  def action_space(self):
+    return DiscreteSpace(rules.N_ACTIONS)
+
+  @property
+  def action_names(self):
+    return list(rules.ACTIONS)
+
+  def reset(self):
+    self._episode += 1
+    key = prng.fold_in(prng.key(self._seed, self.device), self._episode)
+    self._state, obs = self._core.reset(key[None])
+    return obs[0].cpu().numpy()
+
+  def step(self, action):
+    action = torch.tensor([int(action)], dtype=torch.int32,
+                          device=self.device)
+    self._state, obs, reward, done, info = self._core.step(self._state,
+                                                           action)
+    info = {name: value[0].cpu().numpy() for name, value in info.items()}
+    info = {
+        'inventory': {name: int(info['inventory'][i])
+                      for i, name in enumerate(rules.ITEMS)},
+        'achievements': {name: int(info['achievements'][i])
+                         for i, name in enumerate(rules.ACHIEVEMENTS)},
+        'discount': float(info['discount']),
+        'semantic': info['semantic'],
+        'player_pos': info['player_pos'],
+        'reward': float(info['reward']),
+        # Beyond the reference dict: pulses once on the tick the episode
+        # ends, as in the batched VecEnv (equal to `done` here).
+        'ended': bool(info['ended']),
+    }
+    return obs[0].cpu().numpy(), float(reward[0]), bool(done[0]), info
+
+  def render(self, size=None):
+    """The current frame at ``size`` (an atlas baked and cached per
+    size)."""
+    size = tuple(size) if size is not None else self.cfg.size
+    atlas = render_lib.bake_atlas(size, self.cfg.view, self.cfg.item_rows,
+                                  self.device)
+    return render_lib.render(self._state, self.cfg, atlas,
+                             size)[0].cpu().numpy()
+
+
+class GymnasiumEnv(_GymBase):
+  """Gymnasium-API adapter (5-tuple step, seeded reset) over :class:`Env`.
+
+  The reference registers `CrafterReward-v1`/`CrafterNoReward-v1` against
+  the old gym API (crafter/__init__.py:4-17); this adapter exposes the same
+  environments through the modern gymnasium contract.
+  """
+
+  metadata = {'render_modes': ['rgb_array']}
+  render_mode = 'rgb_array'
+
+  def __init__(self, reward=True, length=10000, seed=None, **kwargs):
+    self._env = Env(reward=reward, length=length, seed=seed, **kwargs)
+    self.observation_space = self._env.observation_space
+    self.action_space = self._env.action_space
+
+  def reset(self, *, seed=None, options=None):
+    if seed is not None:
+      self._env._seed = seed
+      self._env._episode = 0
+    return self._env.reset(), {}
+
+  def step(self, action):
+    obs, reward, done, info = self._env.step(action)
+    terminated = bool(info['discount'] == 0.0)
+    truncated = bool(done and not terminated)
+    return obs, reward, terminated, truncated, info
+
+  def render(self):
+    return self._env.render()
+
+  def close(self):
+    pass
+
+
+def register_gym_envs():
+  """Register CrafterReward-v1 / CrafterNoReward-v1 (reference
+  crafter/__init__.py:4-17) with gymnasium and, when it imports, the old
+  gym, each id only if it is not registered yet."""
+  ids = [('CrafterReward-v1', True), ('CrafterNoReward-v1', False)]
+  try:
+    import gymnasium
+    for id_, reward in ids:
+      if id_ not in gymnasium.registry:
+        gymnasium.register(
+            id=id_, entry_point='crafter_tpu_torch.env:GymnasiumEnv',
+            max_episode_steps=10000, kwargs={'reward': reward})
+  except ImportError:
+    pass
+  try:
+    import gym
+    registry = gym.envs.registry
+    known = getattr(registry, 'env_specs', registry)
+    for id_, reward in ids:
+      if id_ not in known:
+        gym.register(id=id_, entry_point='crafter_tpu_torch.env:Env',
+                     max_episode_steps=10000, kwargs={'reward': reward})
+  except ImportError:
+    pass
 
 
 @dataclasses.dataclass

@@ -8,10 +8,16 @@ whose column index has bit ``b`` set by ``f_k(x)``: the row rotated left by
 (``'ctl'``, the arithmetic control).  ``tools/bench_roll_cuda.py`` times the
 three kinds against each other.  For CUDA tensors :func:`roll_stages`
 launches the kernel; for CPU tensors it runs the twin.
-``roll_stages.launches`` counts kernel launches.
+``roll_stages.launches`` counts kernel launches.  The kernel streams rows
+with the bulk copy, which needs 16-byte aligned rows: input whose storage
+offset breaks that (a view) is copied into a fresh tensor first.
+:func:`occupancy` gives the kernel's resident blocks an SM, shared memory a
+block and ring depth for a kind.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -43,7 +49,11 @@ def roll_stages(x: torch.Tensor, kind: str, stages: int) -> torch.Tensor:
   _check(x, kind)
   if not x.is_cuda:
     return roll_stages_plain(x, kind, stages)
+  if x.shape[0] == 0:
+    return x.clone()
   x = x.contiguous()
+  if x.data_ptr() % 16:
+    x = x.clone()          # a fresh allocation is aligned
   out = torch.empty_like(x)
   lib = _build.library()
   _build.check(lib.crafter_roll(
@@ -54,6 +64,17 @@ def roll_stages(x: torch.Tensor, kind: str, stages: int) -> torch.Tensor:
 
 
 roll_stages.launches = 0
+
+
+def occupancy(kind: str) -> tuple[int, int, int]:
+  """``(blocks of 256 threads an SM, shared-memory bytes a block, ring
+  depth in rows)`` of the kernel for ``kind``."""
+  if kind not in KINDS:
+    raise ValueError(f'kind={kind!r} is not one of {KINDS}')
+  out = [ctypes.c_int() for _ in range(3)]
+  _build.check(_build.library().crafter_roll_occupancy(
+      KINDS.index(kind), *(ctypes.byref(o) for o in out)), 'roll occupancy')
+  return tuple(o.value for o in out)
 
 
 def _check(x: torch.Tensor, kind: str) -> None:

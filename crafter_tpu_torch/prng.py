@@ -89,14 +89,16 @@ def uniform(keys: torch.Tensor, shape) -> torch.Tensor:
   return bits.to(torch.int32).view(torch.float32) - 1.0
 
 
-def randint(keys: torch.Tensor, minval: int, maxval: int) -> torch.Tensor:
-  """``jax.random.randint(k, (), minval, maxval)`` (int32) per key.
+def randint(keys: torch.Tensor, minval: int, maxval: int,
+            shape=()) -> torch.Tensor:
+  """``jax.random.randint(k, shape, minval, maxval)`` (int32) per key:
+  (..., *shape).
 
   JAX splits the key in two, draws 32 bits from each and combines them
   modulo the span with uint32 wrapping (random.py:_randint)."""
   sub = split(keys, 2)
-  hi = random_bits(sub[..., 0, :], ())
-  lo = random_bits(sub[..., 1, :], ())
+  hi = random_bits(sub[..., 0, :], shape)
+  lo = random_bits(sub[..., 1, :], shape)
   span = (maxval - minval) & MASK32
   mult = (2 ** 16) % span
   mult = ((mult * mult) & MASK32) % span

@@ -6,14 +6,16 @@ re-implementing the reset/step bookkeeping (reference:
 crafter/recorder.py:9-185).  Here a single :class:`Recorder` wrapper tracks
 the episode once and fans completed-episode events out to independent
 *sinks*; the reference's class names remain as one-sink conveniences because
-downstream code constructs them directly.  The video sink is not in this
-copy: it needs an image library, which the port does not import.
+downstream code constructs them directly.
 
 The on-disk formats ARE the reference's — they feed the score pipeline and
 are held equal to the JAX package's in tests/test_torch_recorder.py:
 
 * ``stats.jsonl``: one ``{"length": L, "reward": R, "achievement_<name>":
   count}`` object per episode (crafter/recorder.py:53-66);
+* ``<ts>-ach<N>-len<L>.gif`` episode videos: the JAX package writes mp4
+  through imageio (gif without ffmpeg); the port imports no image library
+  and writes the gif itself (:func:`write_gif`);
 * ``<ts>-ach<N>-len<L>.npz`` transition dumps with flattened
   ``achievement_*`` / ``ainventory_*`` keys and a zero-filled first step
   (crafter/recorder.py:117-152, :155-185).
@@ -54,6 +56,98 @@ class StatsSink:
     self._file.flush()
 
 
+class VideoSink:
+  """Writes the episode's render frames as an animated gif."""
+
+  def __init__(self, directory, size=(512, 512)):
+    self._directory = _mkdir(directory)
+    self.size = size
+
+  def wants_frames(self):
+    return True
+
+  def episode_done(self, transitions, summary):
+    write_gif(self._directory / (summary['name'] + '.gif'), summary['frames'])
+
+
+def write_gif(path, frames):
+  """Write RGB frames (each (H, W, 3) uint8, one size) as a looping gif at
+  ten frames a second.
+
+  The palette is fixed, 256 colours of 3-3-2 bits: a pixel's index is
+  ``(r >> 5) << 5 | (g >> 5) << 2 | b >> 6`` and index ``i`` shows
+  ``(r3 * 255 // 7, g3 * 255 // 7, b2 * 255 // 3)``, so a decoded channel
+  lies within one quantisation step (32 for red and green, 64 for blue) of
+  the frame's.  The image data is LZW-coded by :func:`_lzw` (8-bit
+  symbols, codes of 9 to 12 bits, a clear code when the table is full).
+  """
+  frames = [np.asarray(f, np.uint8) for f in frames]
+  height, width = frames[0].shape[:2]
+  level = np.arange(256)
+  palette = np.stack([(level >> 5) * 255 // 7, ((level >> 2) & 7) * 255 // 7,
+                      (level & 3) * 255 // 3], -1).astype(np.uint8)
+  u16 = lambda v: int(v).to_bytes(2, 'little')
+  out = bytearray(b'GIF89a' + u16(width) + u16(height) + bytes([0xF7, 0, 0]))
+  out += palette.tobytes()
+  # Loop forever (the NETSCAPE2.0 application extension).
+  out += b'\x21\xFF\x0BNETSCAPE2.0\x03\x01' + u16(0) + b'\x00'
+  for frame in frames:
+    if frame.shape != (height, width, 3):
+      raise ValueError(f'frame {frame.shape}: want ({height}, {width}, 3)')
+    index = ((frame[..., 0] >> 5) << 5) | ((frame[..., 1] >> 5) << 2) \
+        | (frame[..., 2] >> 6)
+    out += b'\x21\xF9\x04\x00' + u16(10) + b'\x00\x00'
+    out += b'\x2C' + u16(0) + u16(0) + u16(width) + u16(height) + b'\x00'
+    data = _lzw(index.reshape(-1).tolist())
+    out += b'\x08'
+    for i in range(0, len(data), 255):
+      out += bytes([len(data[i:i + 255])]) + data[i:i + 255]
+    out += b'\x00'
+  out += b'\x3B'
+  pathlib.Path(path).write_bytes(bytes(out))
+
+
+def _lzw(symbols):
+  """GIF's LZW over 8-bit symbols: a clear code first, variable-width
+  codes (the width grows when the next code would not fit, up to 12
+  bits), a clear code when the table holds 4096 codes, the end code last;
+  the codes packed least significant bit first."""
+  clear, end = 256, 257
+  codes, widths = [clear], [9]
+  table, next_code, width = {}, 258, 9
+  prefix = symbols[0]
+  for symbol in symbols[1:]:
+    key = prefix << 8 | symbol
+    code = table.get(key)
+    if code is not None:
+      prefix = code
+      continue
+    codes.append(prefix)
+    widths.append(width)
+    if next_code < 4096:
+      if next_code >= 1 << width:
+        width += 1
+      table[key] = next_code
+      next_code += 1
+    else:
+      codes.append(clear)
+      widths.append(width)
+      table, next_code, width = {}, 258, 9
+    prefix = symbol
+  codes.append(prefix)
+  widths.append(width)
+  if next_code >= 1 << width and width < 12:
+    width += 1
+  codes.append(end)
+  widths.append(width)
+  codes, widths = np.array(codes, np.int64), np.array(widths, np.int64)
+  start = np.cumsum(widths) - widths
+  owner = np.repeat(np.arange(codes.size), widths)
+  bit = np.arange(int(widths.sum())) - start[owner]
+  bits = ((codes[owner] >> bit) & 1).astype(np.uint8)
+  return np.packbits(bits, bitorder='little').tobytes()
+
+
 class TransitionSink:
   """Writes the full transition arrays as a compressed ``.npz``.
 
@@ -91,18 +185,20 @@ class Recorder:
   """Env wrapper: track each episode once, fan out to sinks on done.
 
   Mirrors the reference's composition root (crafter/recorder.py:9-25):
-  ``directory`` plus two booleans select the standard sinks; pass
+  ``directory`` plus three booleans select the standard sinks; pass
   ``sinks=[...]`` for custom ones (a sink whose ``wants_frames()`` is true
   gets the episode's ``env.render(video_size)`` frames).
   """
 
-  def __init__(self, env, directory, save_stats=True, save_episode=True,
-               video_size=(512, 512), sinks=None):
+  def __init__(self, env, directory, save_stats=True, save_video=True,
+               save_episode=True, video_size=(512, 512), sinks=None):
     self._env = env
     if sinks is None:
       sinks = []
       if directory and save_stats:
         sinks.append(StatsSink(directory))
+      if directory and save_video:
+        sinks.append(VideoSink(directory, video_size))
       if directory and save_episode:
         sinks.append(TransitionSink(directory))
     self._sinks = sinks
@@ -180,6 +276,12 @@ def _mkdir(directory):
 def StatsRecorder(env, directory):
   """Stats-only recorder (crafter/recorder.py:28-66 surface)."""
   return Recorder(env, directory, sinks=[StatsSink(directory)])
+
+
+def VideoRecorder(env, directory, size=(512, 512)):
+  """Video-only recorder (crafter/recorder.py:69-99 surface)."""
+  return Recorder(env, directory, video_size=size,
+                  sinks=[VideoSink(directory, size)])
 
 
 def EpisodeRecorder(env, directory):

@@ -471,15 +471,76 @@ def test_daylight_on_card_equals_cpu(dev, day_length):
 
 @pytest.mark.parametrize('kind', roll_cuda.KINDS)
 def test_roll_kernel_matches_plain_twin(dev, kind):
+  """Bitwise against the twin at stage counts that reach every branch (none,
+  one, a whole and a wrapped cycle of the 12 bits, 40) on row counts below,
+  off a multiple of and far above the persistent grid; the input stays as
+  it was and every call counts one launch."""
   gen = torch.Generator(device=dev)
   gen.manual_seed(7)
-  x = torch.randint(0, 1 << 24, (1000, 4096), generator=gen, device=dev,
-                    dtype=torch.int32)
+  for rows in (1, 13, 4099, 40960):
+    x = torch.randint(0, 1 << 24, (rows, 4096), generator=gen, device=dev,
+                      dtype=torch.int32)
+    x0 = x.clone()
+    for stages in (0, 1, 10, 12, 13, 40):
+      before = roll_cuda.roll_stages.launches
+      got = roll_cuda.roll_stages(x, kind, stages)
+      assert roll_cuda.roll_stages.launches == before + 1
+      assert torch.equal(got, roll_cuda.roll_stages_plain(x, kind, stages)), \
+          (rows, stages)
+    assert torch.equal(x, x0), rows
+
+
+def test_roll_kernel_copies_an_unaligned_view(dev):
+  """A view whose rows are not 16-byte aligned (the bulk copy's rule) is
+  copied into an aligned tensor, not handed to the twin: one launch a
+  call, the result the twin's, the view untouched."""
+  gen = torch.Generator(device=dev)
+  gen.manual_seed(8)
+  base = torch.randint(0, 1 << 24, (13 * 4096 + 1,), generator=gen,
+                       device=dev, dtype=torch.int32)
+  x = base[1:].view(13, 4096)
+  assert x.data_ptr() % 16 != 0
+  x0 = x.clone()
+  for kind in roll_cuda.KINDS:
+    before = roll_cuda.roll_stages.launches
+    got = roll_cuda.roll_stages(x, kind, 13)
+    assert roll_cuda.roll_stages.launches == before + 1
+    assert torch.equal(got, roll_cuda.roll_stages_plain(x0, kind, 13)), kind
+  assert torch.equal(x, x0)
+  empty = torch.empty((0, 4096), dtype=torch.int32, device=dev)
   before = roll_cuda.roll_stages.launches
-  for stages in (0, 1, 10, 13, 40):
-    assert torch.equal(roll_cuda.roll_stages(x, kind, stages),
-                       roll_cuda.roll_stages_plain(x, kind, stages)), stages
-  assert roll_cuda.roll_stages.launches == before + 5
+  assert roll_cuda.roll_stages(empty, 'roll', 10).shape == (0, 4096)
+  assert roll_cuda.roll_stages.launches == before
+  for kind in roll_cuda.KINDS:
+    blocks, smem, depth = roll_cuda.occupancy(kind)
+    assert blocks >= 3 and depth >= 2 and smem > depth * 4096 * 4, kind
+
+
+def test_env_on_card_equals_cpu(dev):
+  """``Env`` on the card and on the CPU over two short episodes: frames,
+  rewards, flags and info equal, and the render at 512x512 (the render
+  kernel's global instantiation) too."""
+  card = ct.Env(seed=5, length=30, device=dev)
+  cpu = ct.Env(seed=5, length=30, device='cpu')
+  rs = torch.Generator()
+  rs.manual_seed(5)
+  assert (card.reset() == cpu.reset()).all()
+  launches = (step_cuda.tick.launches, ct.render_win79.launches)
+  episodes = 0
+  while episodes < 2:
+    action = int(torch.randint(0, 17, (), generator=rs))
+    a, b = card.step(action), cpu.step(action)
+    assert (a[0] == b[0]).all() and a[1:3] == b[1:3]
+    for name, value in b[3].items():
+      assert (a[3][name] == value) if not hasattr(value, 'shape') else \
+          (a[3][name] == value).all() and a[3][name].dtype == value.dtype, \
+          name
+    if a[2]:
+      episodes += 1
+      assert (card.reset() == cpu.reset()).all()
+  assert (card.render((512, 512)) == cpu.render((512, 512))).all()
+  now = (step_cuda.tick.launches, ct.render_win79.launches)
+  assert all(b > a for a, b in zip(launches, now)), (launches, now)
 
 
 def test_train_step_on_card(dev):

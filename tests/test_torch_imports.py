@@ -1,5 +1,6 @@
 """The port stands alone: ``crafter_tpu_torch``, ``chip_smoke.py``, the
-GPU tools ``tools/bench_roll_cuda.py`` and ``tools/bench_paths_cuda.py``
+port's bench ``bench_cuda.py``, the GPU tools ``tools/bench_roll_cuda.py``
+and ``tools/bench_paths_cuda.py``
 and ``tests/dense_states.py`` (which ``chip_smoke.py`` imports) import
 neither JAX (nor flax, optax, orbax or chex) nor the JAX package nor an
 image library (PIL, imageio: the card's
@@ -21,7 +22,8 @@ FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'chex', 'crafter_tpu',
              'PIL', 'imageio')
 
 
-SCRIPTS = [ROOT / 'chip_smoke.py', ROOT / 'tools' / 'bench_roll_cuda.py',
+SCRIPTS = [ROOT / 'chip_smoke.py', ROOT / 'bench_cuda.py',
+           ROOT / 'tools' / 'bench_roll_cuda.py',
            ROOT / 'tools' / 'bench_paths_cuda.py',
            ROOT / 'tests' / 'dense_states.py']
 

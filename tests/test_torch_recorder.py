@@ -113,7 +113,11 @@ def test_stats_recorder_wrapper_matches(tmp_path):
         _, _, done, _ = env.step(0)
   assert ((tmp_path / 'ours' / 'stats.jsonl').read_text()
           == (tmp_path / 'theirs' / 'stats.jsonl').read_text())
-  assert not hasattr(recorder, 'VideoSink')
+  # The full recorder picks the same sinks in both packages.
+  kinds = lambda lib, name: [type(sink).__name__ for sink in lib.Recorder(
+      FakeEnv(), tmp_path / 'all' / name)._sinks]
+  assert kinds(recorder, 'ours') == kinds(jrecorder, 'theirs') == [
+      'StatsSink', 'VideoSink', 'TransitionSink']
 
 
 def test_profiling_helpers(tmp_path):
