@@ -69,6 +69,23 @@ Run from the repository root on a machine with an NVIDIA H100:
    forward on the card must agree with the CPU's within POLICY_ATOL; and a
    training state saved on the card, restored and stepped must equal the
    one stepped without the round trip.
+5. Drives what the port adds beyond the batched paths, each with the
+   launch counts set to 0 just before and read just after:
+   C1, the 'compat' worldgen mode (the permutation-table OpenSimplex, plain
+   PyTorch on the card as its JAX counterpart is plain jnp): 320 worlds on
+   the card equal to the CPU's, ``vec_reset_chunked`` of 4096 compat envs,
+   the reset pass of 320 worlds timed in compat and in auto mode in turns
+   and profiled (device busy, operations a pass), 3 state-only groups on
+   the compat worlds (group tick and balance kernels, no 2-D noise), and
+   13 envs over 3 groups on the card equal to the plain path on the CPU
+   across episode ends; C2, ``ParityEnv``'s seeded rollout
+   (``tests/parity_digest.py``) with the digest the CPU tests pin to the
+   JAX package's, and its steps/s; C3, the CLIs: ``run_terrain`` at its
+   defaults (4 worlds viewed whole at 1024x1024: the render kernel on
+   windows of 4048 values) equal to the plain twin's image on the CPU, its
+   PNG inflating to it, and the kernel on that window timed against the
+   twin; ``run_random --envs 4096 --steps 409600`` (its env-steps/s) and
+   ``run_random`` on one env for 200 steps with ``--record``.
 
 Every kernel's time is taken with the wrapper (CUDA events) and on the
 device alone (``torch.profiler``); the balance also prints the host's
@@ -666,7 +683,8 @@ def main():
   pix = atlas.src.shape[0]
   lit_pix = int(atlas.view_mask.sum())
   table_bytes = sum(t.numel() * t.element_size()
-                    for _, t in leaves(atlas.compact))
+                    for _, t in leaves(atlas.compact)
+                    if isinstance(t, torch.Tensor))
   render_bytes = lambda frames: (frames * (win79.shape[1] * 4 + 12)
                                  + table_bytes + frames * pix * 3)
   render_ops = lambda frames, night: (
@@ -837,14 +855,17 @@ def main():
                      if e.device_type == torch.autograd.DeviceType.CUDA),
                     key=dev_us, reverse=True)
     busy_ms = sum(dev_us(e) for e in events) / 1e3
+    n_launch = sum(e.count for e in events if dev_us(e) > 0)
     print(f'profile of {reps} {unit}s of the {path} path on {card}: wall '
           f'{wall_ms / reps:.1f} ms/{unit}, device busy '
           f'{busy_ms / reps:.1f} ms/{unit} '
-          f'({100 * busy_ms / wall_ms:.1f}%); top device time:', flush=True)
+          f'({100 * busy_ms / wall_ms:.1f}%), {n_launch / reps:.0f} device '
+          f'operations/{unit}; top device time:', flush=True)
     for e in events[:TOP_OPS]:
       if dev_us(e) > 0:
         print(f'  {dev_us(e) / 1e3 / reps:8.3f} ms/{unit} '
               f'{e.count / reps:7.1f}/{unit}  {e.key[:70]}')
+    return wall_ms / reps, busy_ms / reps, n_launch / reps
 
   # 3a, 3b. The state-only path and the pixel path (one frame per tick and
   # env), in turns (state, pixel, state, pixel) so that the two are compared
@@ -1245,6 +1266,218 @@ def main():
   if int(ts_b.vec.episode.sum()) == 64:
     fail('checkpoint: no episode ended after the round trip')
 
+  # 5. What the port adds for users beyond the batched paths.
+  # C1. The 'compat' worldgen mode: the permutation-table OpenSimplex runs
+  # as plain PyTorch on the card (its JAX counterpart is plain jnp, with no
+  # TPU kernel behind it), so its worlds must equal the CPU's; then a
+  # reset of 4096 compat worlds and state-only groups on them.
+  ccfg = dataclasses.replace(cfg, noise_mode='compat')
+  ckeys = ct.prng.fold_in(ct.home_keys(11, RESET_BATCH, dev), 1)
+  wk = worldgen.generate_world(ckeys, ccfg)
+  t0 = time.perf_counter()
+  wc = worldgen.generate_world(ckeys.cpu(), ccfg)
+  compat_cpu_s = time.perf_counter() - t0
+  if max_err(wk, wc, 'compat worldgen card vs CPU') != 0:
+    fail(f'{RESET_BATCH} compat worlds made on the card differ from the '
+         'CPU\'s')
+  if len(torch.unique(wk.mat_map)) < 8 or int((wk.ent.etype > 1).sum()) == 0:
+    fail('compat worlds: too few materials or no mob')
+  print(f'C1 compat worldgen: {RESET_BATCH} worlds on the card == on the CPU '
+        f'(the CPU took {compat_cpu_s:.1f} s)', flush=True)
+  del wk, wc
+  zero_counts()
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  cvs = ct.vec_reset_chunked(ct.home_keys(12, N_ENVS, dev), ccfg)
+  torch.cuda.synchronize()
+  compat_reset_s = time.perf_counter() - t0
+  if noise_cuda.noise2.launches:
+    fail('the compat reset went through the 2-D noise kernel')
+  done = torch.rand(N_ENVS, generator=gen, device=dev) < 0.1
+  reset_pass_ms = {}
+  for name, rcfg in (('auto', cfg), ('compat', ccfg), ('auto again', cfg),
+                     ('compat again', ccfg)):
+    _, reset_pass_ms[name] = timed(lambda: env_lib._reset_pass(
+        cvs.env, done, cvs.episode, cvs.home_key, rcfg, RESET_BATCH), 3)
+  compat_profile = profile(lambda: env_lib._reset_pass(
+      cvs.env, done, cvs.episode, cvs.home_key, ccfg, RESET_BATCH), 2,
+      'call', 'compat reset pass')
+  auto_profile = profile(lambda: env_lib._reset_pass(
+      cvs.env, done, cvs.episode, cvs.home_key, cfg, RESET_BATCH), 2,
+      'call', 'auto reset pass')
+  print(f'C1 reset pass of {RESET_BATCH} worlds on {card} (events, one '
+        f'process, in turns): ' + ', '.join(
+            f'{name} {ms:.2f} ms' for name, ms in reset_pass_ms.items())
+        + f'; vec_reset_chunked of {N_ENVS} compat envs {compat_reset_s:.2f} '
+        's', flush=True)
+  zero_counts()
+  cvs, _ = ct.vec_step_group(cvs, draw(N_ENVS), ccfg, RESET_BATCH)  # warm-up
+  cvs0 = cvs
+  start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+  start.record()
+  cdone = 0
+  for _ in range(3):
+    cvs, outs = ct.vec_step_group(cvs, draw(N_ENVS), ccfg, RESET_BATCH)
+    cdone = cdone + outs.ended.sum()
+  end.record()
+  torch.cuda.synchronize()
+  compat_ms = start.elapsed_time(end) / 3
+  check_advanced(cvs, cvs0, 3 * k, 'compat state-only')
+  compat_counts = read_counts('compat state-only', ('group_tick', 'balance'))
+  if compat_counts['noise2']:
+    fail('the compat path launched the 2-D noise kernel')
+  print(f'C1 compat state-only path on {card}: 3 groups x {k} ticks x '
+        f'{N_ENVS} envs, {compat_ms:.2f} ms/group '
+        f'({N_ENVS * k / (compat_ms / 1e3):,.0f} env-steps/s, '
+        f'{int(cdone)} episodes ended; launches {compat_counts})',
+        flush=True)
+  del cvs, cvs0, done, outs
+  torch.cuda.empty_cache()
+  small_c = dataclasses.replace(ccfg, length=25)
+  plain_c = dataclasses.replace(small_c, engine='plain')
+  va = ct.vec_reset(ct.home_keys(9, 13, dev), small_c)
+  vc = ct.vec_reset(ct.home_keys(9, 13, 'cpu'), plain_c)
+  for g in range(3):
+    a = draw(13)
+    va, oa = ct.vec_step_group(va, a, small_c, 4)
+    vc, oc = ct.vec_step_group(vc, a.cpu(), plain_c, 4)
+    if (max_err(va, vc, f'compat group {g} vs CPU plain')
+        or max_err(oa, oc, 'compat outs vs CPU plain')):
+      fail(f'compat, 13 envs: the kernel path on the card and the plain '
+           f'path on the CPU differ at group {g}')
+  if int(va.episode.sum()) <= 13:
+    fail('compat, 13 envs: no episode ended')
+  print(f'C1 13 compat envs x 3 groups: kernel path on the card == plain '
+        f'path on the CPU ({int(va.episode.sum()) - 13} episodes begun)',
+        flush=True)
+
+  # C2. ParityEnv, numpy on the host: the digest of a seeded rollout
+  # (tests/parity_digest.py), which the CPU tests pin to the JAX
+  # package's ParityEnv, on this machine's numpy and Python.
+  import importlib.util
+  import parity_digest
+  t0 = time.perf_counter()
+  digest, pcounts = parity_digest.rollout(ct.ParityEnv)
+  parity_s = time.perf_counter() - t0
+  libs = {m: importlib.util.find_spec(m) is not None
+          for m in ('PIL', 'imageio')}
+  if digest != parity_digest.DIGEST:
+    fail(f'ParityEnv: digest {digest}, want {parity_digest.DIGEST}')
+  if 'PIL' in sys.modules or 'imageio' in sys.modules:
+    fail('ParityEnv imported an image library')
+  print(f'C2 ParityEnv: {pcounts["steps"]} steps, {pcounts["episodes"]} '
+        f'episodes begun, {pcounts["night"]} night and '
+        f'{pcounts["sleeping"]} sleeping frames: digest equal to the JAX '
+        f'package\'s; {pcounts["steps"] / parity_s:,.1f} steps/s on this '
+        f'host (image libraries installed here: {libs}; none imported)',
+        flush=True)
+
+  # C3. The CLIs on the card.  run_terrain at its defaults (4 worlds viewed
+  # whole at 1024 px): the render kernel on windows of 4048 values, its
+  # image equal to the plain twin's (the CPU path) and its PNG inflating
+  # to that image.
+  import contextlib
+  import io
+  import struct
+  import zlib
+  from crafter_tpu_torch import run_random, run_terrain
+  zero_counts()
+  with tempfile.TemporaryDirectory() as tmp:
+    png_path = Path(tmp) / 'terrain.png'
+    t0 = time.perf_counter()
+    grid = run_terrain.main(['--filename', str(png_path)])
+    terrain_s = time.perf_counter() - t0
+    data = png_path.read_bytes()
+  terrain_counts = read_counts('run_terrain', ('render_win79', 'noise2'))
+  plain_grid = run_terrain.terrain_grid(4, 4, (64, 64), 1024, 0, 'cpu')
+  if grid.shape != (1024, 4096, 3) or not (grid == plain_grid).all():
+    fail('run_terrain: the card\'s image differs from the plain twin\'s')
+  pos, idat = 8, b''
+  while pos < len(data):
+    (length,), kind = struct.unpack('>I', data[pos:pos + 4]), \
+        data[pos + 4:pos + 8]
+    if kind == b'IDAT':
+      idat += data[pos + 8:pos + 8 + length]
+    pos += 12 + length
+  png_rows = torch.frombuffer(bytearray(zlib.decompress(idat)),
+                              dtype=torch.uint8).reshape(1024, 1 + 4096 * 3)
+  if (png_rows[:, 0] != 0).any() or not (
+      png_rows[:, 1:].reshape(1024, 4096, 3).numpy() == grid).all():
+    fail('run_terrain: the PNG does not inflate to the image')
+  print(f'C3 run_terrain at its defaults: {terrain_s:.2f} s, image == plain '
+        f'twin (CPU), PNG ({len(data)} bytes) inflates to it; launches '
+        f'{terrain_counts}', flush=True)
+  tenv = ct.Env(area=(64, 64), view=(64, 64), size=(1024, 1024), seed=0,
+                device=dev)
+  tenv.reset()
+  st, tcfg, tatlas = tenv._state, tenv.cfg, tenv._core.atlas
+  twin = render_lib.window_prep(
+      render_lib.pack_cells(st.mat_map, st.ent.etype, st.ent.aux,
+                            st.ent.facing),
+      st.player.pos, st.player.facing, st.player.sleeping,
+      st.player.inventory, tcfg)
+  targs = (twin, ct.daylight(st.step, tcfg.day_length), st.player.sleeping,
+           render_lib.noise_seed(st.key, st.step), tatlas)
+  tframe, tms = timed(lambda: render_cuda.render_win79(
+      *targs, tcfg.size, 'frames'), 5)
+  tdev = device_ms(lambda: render_cuda.render_win79(*targs, tcfg.size,
+                                                    'frames'),
+                   'render_kernel')
+  tplain, tplain_ms = timed(lambda: render_lib.render_win79_plain(*targs), 3)
+  terr = float((tframe.to(torch.int16) - render_lib.format_pixels(
+      tplain, tcfg.size, 'frames').to(torch.int16)).abs().max())
+  print(f'C3 render_win79 on a whole-area window ({twin.shape[1]} values, '
+        f'{tcfg.size[0]}x{tcfg.size[1]}, '
+        f'{"shared" if render_cuda.occupancy(tatlas)[0] else "global"} '
+        f'tables): {tms:.3f} ms (device {dev_str(tdev)}, plain '
+        f'{tplain_ms:.3f} ms), max |diff| {terr}', flush=True)
+  if terr != 0:
+    fail('render_win79 on the whole-area window disagrees with the twin')
+  tpix = tatlas.src.shape[0]
+  rows.append(dict(
+      name='render_win79_terrain', source='crafter_tpu_torch/csrc/render.cu',
+      replaces='crafter_tpu/render.py:567', max_abs_err=terr, ms=tms,
+      plain_ms=tplain_ms,
+      bytes=twin.numel() * 4 + 12 + tpix * 3 + sum(
+          t.numel() * t.element_size() for _, t in leaves(tatlas.compact)
+          if isinstance(t, torch.Tensor)),
+      ops=(tpix * OPS_RENDER_TEXEL + int(tatlas.view_mask.sum())
+           * OPS_RENDER_LIGHT), library_ms=None, device_ms=tdev))
+  del tenv, st, targs, tframe, tplain, grid, plain_grid, png_rows
+  torch.cuda.empty_cache()
+
+  def cli(argv):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+      run_random.main(argv)
+    print('\n'.join(f'  {line}' for line in out.getvalue().splitlines()),
+          flush=True)
+    return out.getvalue()
+
+  zero_counts()
+  text = cli(['--envs', str(N_ENVS), '--steps', str(100 * N_ENVS),
+              '--seed', '3'])
+  random_envs_counts = read_counts('run_random --envs', (
+      'tick', 'balance', 'noise2', 'render_win79', 'daylight'))
+  rate = re.search(r'\((\d+) env-steps/s\)', text)
+  if not rate or random_envs_counts['tick'] != 100:
+    fail(f'run_random --envs: {text!r}, launches {random_envs_counts}')
+  print(f'C3 run_random --envs {N_ENVS} --steps {100 * N_ENVS} on {card}: '
+        f'{int(rate.group(1)):,} env-steps/s; launches {random_envs_counts}',
+        flush=True)
+  zero_counts()
+  with tempfile.TemporaryDirectory() as tmp:
+    text = cli(['--steps', '200', '--length', '100', '--seed', '3',
+                '--record', tmp])
+    recorded = sorted(p.suffix for p in Path(tmp).iterdir())
+    stats_rows = (Path(tmp) / 'stats.jsonl').read_text().splitlines()
+  random_env_counts = read_counts('run_random', ('tick', 'render_win79'))
+  if (len(stats_rows) != 2 or recorded.count('.gif') != 2
+      or recorded.count('.npz') != 2 or 'Coal count:' not in text):
+    fail(f'run_random --record: {recorded}, {len(stats_rows)} stats rows')
+  print(f'C3 run_random, one env, 200 steps with --record: 2 episodes '
+        f'recorded ({recorded}); launches {random_env_counts}', flush=True)
+
   paths = (state_counts, pixel_counts, tick_counts, ppo_counts)
   launches = {
       'group_tick': state_counts['group_tick'],
@@ -1254,7 +1487,8 @@ def main():
       'render_win79': pixel_counts['render_win79'],
       'render_win79_4096': tick_counts['render_win79']
       + ppo_counts['render_win79'],
-      'noise3': tool_counts['noise3'], 'roll': tool_counts['roll']}
+      'noise3': tool_counts['noise3'], 'roll': tool_counts['roll'],
+      'render_win79_terrain': terrain_counts['render_win79']}
   for worlds in NOISE_WORLDS:
     name = 'noise2' if worlds == RESET_BATCH else f'noise2_{worlds}'
     launches[name] = sum(cn[f'noise2_rows_{worlds}'] for cn in paths)
@@ -1290,7 +1524,15 @@ def main():
       'launches_by_path': {'state_only': state_counts, 'pixel': pixel_counts,
                            'per_tick': tick_counts, 'training': ppo_counts,
                            'noise3_and_roll_tool': tool_counts,
-                           'bench': bench_counts, 'env': env_counts}}))
+                           'bench': bench_counts, 'env': env_counts,
+                           'compat_state_only': compat_counts,
+                           'run_terrain': terrain_counts,
+                           'run_random_envs': random_envs_counts,
+                           'run_random_env': random_env_counts},
+      'compat': {'reset_pass_ms': reset_pass_ms, 'ms_per_group': compat_ms,
+                 'reset_pass_profile': compat_profile,
+                 'auto_reset_pass_profile': auto_profile},
+      'parity_steps_per_s': pcounts['steps'] / parity_s}))
   print(card)
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

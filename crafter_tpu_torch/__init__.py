@@ -14,7 +14,11 @@ them; and training on top of the per-tick path: ``PPO`` / ``PPOConfig``
 ``recorder.py`` / ``analysis.py`` and the CLI ``python -m
 crafter_tpu_torch.run_train``; and the reference's single-env surfaces:
 ``Env`` (Gym API), ``GymnasiumEnv``, ``register_gym_envs`` and the
-recorders.  Entry points run on ``cuda`` unless given ``device='cpu'``.
+recorders; the seed-exact oracle ``ParityEnv`` (numpy on the host,
+``parity.py``); the 'compat' worldgen mode (``EnvConfig(noise_mode=
+'compat')``: the permutation-table OpenSimplex of ``ops/noise.py``); and
+the CLIs ``run_random``, ``run_terrain``, ``run_gui`` and ``plots``.
+Entry points run on ``cuda`` unless given ``device='cpu'``.
 """
 
 from . import prng, render, rules
@@ -24,6 +28,7 @@ from .env import (CrafterEnv, Env, GymnasiumEnv, VecEnv, VecState,
                   home_keys, register_gym_envs, vec_reset, vec_reset_chunked,
                   vec_step, vec_step_group, vec_step_group_obs, vec_step_k)
 from .models import CnnPolicy, PolicyOutput
+from .parity import ParityEnv
 from .ppo import PPO, PPOConfig, PPOState, Transition
 from .recorder import (EpisodeRecorder, Recorder, StatsRecorder,
                        VecStatsRecorder, VideoRecorder)
@@ -40,7 +45,8 @@ from .worldgen import generate_world
 __all__ = [
     'Atlas', 'CnnPolicy', 'CrafterEnv', 'DEFAULT_CONFIG', 'EntMaps', 'Env',
     'EnvConfig', 'EpisodeRecorder', 'GroupSnaps', 'GymnasiumEnv', 'PPO',
-    'PPOConfig', 'PPOState', 'Player', 'PolicyOutput', 'Recorder', 'State',
+    'PPOConfig', 'PPOState', 'ParityEnv', 'Player', 'PolicyOutput',
+    'Recorder', 'State',
     'StatsRecorder', 'StepOut', 'Transition', 'VecEnv', 'VecState',
     'VecStatsRecorder', 'VideoRecorder', 'bake_atlas', 'balance',
     'balance_plain', 'daylight', 'finish_tick', 'frame_image',

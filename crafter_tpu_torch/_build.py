@@ -114,7 +114,7 @@ def library() -> ctypes.CDLL:
     lib.crafter_tick.argtypes = [vp] * 16 + [i32] * 4 + [vp]
     lib.crafter_tick_occupancy.argtypes = [i32] * 4 + [ctypes.POINTER(i32)] * 2
     lib.crafter_render.argtypes = ([vp] * 5 + [i32, vp, i32, vp] + [i32] * 3
-                                   + [vp] * 3 + [i32] * 5 + [vp])
+                                   + [vp] * 3 + [i32] * 6 + [vp])
     lib.crafter_render_occupancy.argtypes = ([i32] * 5
                                              + [ctypes.POINTER(i32)] * 2)
     lib.crafter_balance.argtypes = ([vp] * 7 + [i64, vp, i64, i64, vp, i64]

@@ -9,7 +9,11 @@ this package's backends:
   the hand-written CUDA kernels for CUDA tensors and take the plain
   PyTorch twin for CPU tensors; ``'plain'`` always runs the twin.
 * ``noise_mode`` — the worldgen noise: ``'auto'`` calls the noise kernel
-  wrapper, ``'fast'`` always runs the plain ``noise2_fast``.
+  wrapper, ``'fast'`` always runs the plain ``noise2_fast``; ``'compat'``
+  is the original OpenSimplex with its 256-entry permutation table (a
+  table a world, ``ops/noise.py:noise3``), the JAX package's 'compat'
+  mode: plain PyTorch on every device, as its JAX counterpart is plain
+  jnp (no TPU kernel behind it).
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from typing import Tuple
 from . import rules
 
 ENGINES = ('auto', 'plain')
-NOISE_MODES = ('auto', 'fast')
+NOISE_MODES = ('auto', 'fast', 'compat')
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,4 +1,5 @@
-// Frame synthesis: each frame's 79 window values and four scalars to its
+// Frame synthesis: each frame's window values (79 for the 9x9 view; one a
+// world cell and 16 for a view of the whole area) and four scalars to its
 // pixels, from the atlas's compact tables.
 //
 // Replaces the TPU kernel crafter_tpu/render.py:render_win79 (kernel body
@@ -26,7 +27,12 @@
 // * Work items are segments of one frame (512 pixels, or up to 4096 while
 //   every resident warp still gets kRounds of them), frame-major, one at a
 //   time a warp: a warp stages its frame's values in its own slot of shared
-//   memory, and the day, night and sleep branches are uniform over it.
+//   memory (windows of up to kMaxWin values; larger ones, a view of the
+//   whole area, are read from global memory where a pixel needs them), and
+//   the day, night and sleep branches are uniform over it.
+// * A pixel's code word is (source + 1) | view << S | offset << (S + 1),
+//   S = src_bits: 8, or more for windows of 256 values or more
+//   (render.py:code_src_bits).
 // * Each lane makes runs of 4 consecutive pixels: predicated texel loads
 //   (no branch on the pixel's kind), the canvas (the blit only for partial
 //   alpha), the lighting where a pixel of the run is in the view, and whole
@@ -52,7 +58,8 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMinBlocks = 3;
 constexpr int kSeg = 512;      // pixels of one work item, at least
 constexpr int kRounds = 8;     // work items a resident warp should have
-constexpr int kMaxWin = 128;   // window values a frame may have (79 here)
+constexpr int kMaxWin = 128;   // window values staged in shared memory
+constexpr int kStagedSrcBits = 8;   // the source field of such windows
 constexpr int kRows = 16;      // material / sprite ids: 4 bits each
 
 // The tables, in global or (staged) shared memory.
@@ -133,19 +140,22 @@ __device__ __forceinline__ uint32_t canvas(uint32_t base, uint32_t spr) {
 }
 
 // The canvas of the pixel with code word `code` in a frame whose values
-// are in win[1..n] (win[0] = 0 reads for pixels that show no value).  A
+// are in win[1..n] (win[0] = 0 reads for pixels that show no value) when
+// staged in shared memory, else in global memory at win[0..n-1].  A
 // view pixel blits its tile's sprite texel on its material texel; a strip
 // pixel shows its slot's item tile at the amount it reads; the others
 // nothing.  The loads are predicated, not branched over: shared rows are
 // padded to 16 (empty beyond the table, and sprite row 0 empty), so only
 // the global tables need the range checks.
-template <bool kShared>
+template <bool kShared, bool kStaged>
 __device__ __forceinline__ uint32_t pixel_canvas(const Tables& t,
-                                                 const int* win, int code) {
-  const int src1 = code & 255;
-  const bool view = (code >> 8) & 1;
-  const int off = (int)((uint32_t)code >> 9);
-  const uint32_t id = (uint32_t)win[src1];
+                                                 const int* win, int code,
+                                                 int src_bits) {
+  const int src1 = code & ((1 << src_bits) - 1);
+  const bool view = (code >> src_bits) & 1;
+  const int off = (int)((uint32_t)code >> (src_bits + 1));
+  const uint32_t id = kStaged ? (uint32_t)win[src1]
+                              : (src1 ? (uint32_t)__ldg(win + src1 - 1) : 0u);
   const int mid = id & 15, tex = (id >> 4) & 15;
   const int m = mid * t.texels + off;
   const bool base_ok = view ? (kShared || mid < t.n_mat)
@@ -229,29 +239,32 @@ __device__ __forceinline__ uint32_t light(uint32_t c, float vig, int p,
          | ((uint32_t)(int)floorf(lit[2]) << 16);
 }
 
-// Shared memory a block needs: the window slots, and for the shared
-// instantiation the padded tables (each part a multiple of 16 bytes).
+// Shared memory a block needs: the window slots (windows of up to kMaxWin
+// values), and for the shared instantiation the padded tables (each part a
+// multiple of 16 bytes).
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
+
+__host__ __device__ inline bool staged(int n_win) { return n_win <= kMaxWin; }
 
 __host__ __device__ inline size_t smem_words(bool shared, int n_win,
                                              int items_words, int texels,
                                              int c) {
-  size_t words = (size_t)kWarps * round4(n_win + 1);
+  size_t words = staged(n_win) ? (size_t)kWarps * round4(n_win + 1) : 0;
   if (shared)
     words += (size_t)round4(2 * kRows * texels) + round4(items_words)
              + 2 * (size_t)round4(c);
   return words;
 }
 
-template <bool kShared>
+template <bool kShared, bool kStaged>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) render_kernel(
     const int32_t* __restrict__ win79, const float* __restrict__ daylight,
     const int32_t* __restrict__ sleeping, const int32_t* __restrict__ seeds,
     Tables t, int items_words, void* __restrict__ out, int bytes, int b,
-    int n_win, int c, int seg_px) {
+    int n_win, int c, int seg_px, int src_bits) {
   extern __shared__ __align__(16) int smem[];
-  const int slot = round4(n_win + 1);
-  int* win = smem + (threadIdx.x >> 5) * slot;
+  const int slot = kStaged ? round4(n_win + 1) : 0;
+  const int* win = smem + (threadIdx.x >> 5) * slot;
   if (kShared) {
     int* s = smem + kWarps * slot;
     int* s_mat = s;
@@ -279,6 +292,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) render_kernel(
     t.vig = s_vig;
   }
 
+  // A staged window has fewer than 256 values: its source field is 8 bits
+  // wide, a constant here.
+  const int sb = kStaged ? kStagedSrcBits : src_bits;
+  const int view_bit = 1 << sb;
   const int lane = threadIdx.x & 31;
   const int segs = (c + seg_px - 1) / seg_px;
   const long long n_work = (long long)b * segs;
@@ -287,10 +304,15 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) render_kernel(
        w < n_work; w += (long long)gridDim.x * kWarps) {
     const int frame = (int)(w / segs);
     const int seg = (int)(w - (long long)frame * segs);
-    __syncwarp();
-    for (int i = lane; i <= n_win; i += 32)
-      win[i] = i ? win79[(size_t)frame * n_win + i - 1] : 0;
-    __syncwarp();
+    if (kStaged) {
+      int* slot_w = smem + (threadIdx.x >> 5) * slot;
+      __syncwarp();
+      for (int i = lane; i <= n_win; i += 32)
+        slot_w[i] = i ? win79[(size_t)frame * n_win + i - 1] : 0;
+      __syncwarp();
+    } else {
+      win = win79 + (size_t)frame * n_win;
+    }
     Frame f;
     f.d = daylight[frame];
     f.slp = sleeping[frame] != 0;
@@ -319,23 +341,23 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) render_kernel(
       int view = 0;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        px[j] = pixel_canvas<kShared>(t, win, code[j]);
+        px[j] = pixel_canvas<kShared, kStaged>(t, win, code[j], sb);
         view |= code[j];
       }
       // The item strip and the border keep their raw texels; the lighting
       // runs where a pixel of the run is in the view.
-      if (view & 0x100) {
+      if (view & view_bit) {
         if (unit) {
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             const uint32_t lit = light<true>(px[j], vig[j], p0 + j, f);
-            px[j] = (code[j] & 0x100) ? lit : px[j];
+            px[j] = (code[j] & view_bit) ? lit : px[j];
           }
         } else {
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             const uint32_t lit = light<false>(px[j], vig[j], p0 + j, f);
-            px[j] = (code[j] & 0x100) ? lit : px[j];
+            px[j] = (code[j] & view_bit) ? lit : px[j];
           }
         }
       }
@@ -367,10 +389,12 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) render_kernel(
   }
 }
 
-using RenderFn = decltype(&render_kernel<true>);
+using RenderFn = decltype(&render_kernel<true, true>);
 
-RenderFn kernel_for(bool shared) {
-  return shared ? render_kernel<true> : render_kernel<false>;
+RenderFn kernel_for(bool shared, int n_win) {
+  if (staged(n_win))
+    return shared ? render_kernel<true, true> : render_kernel<false, true>;
+  return shared ? render_kernel<true, false> : render_kernel<false, false>;
 }
 
 cudaError_t prepare(RenderFn kernel, size_t smem) {
@@ -390,7 +414,7 @@ cudaError_t prepare(RenderFn kernel, size_t smem) {
 extern "C" int crafter_render_occupancy(int shared, int n_win,
                                         int items_words, int texels, int c,
                                         int* blocks, int* smem_out) {
-  if (n_win > kMaxWin || n_win <= 0) return (int)cudaErrorInvalidValue;
+  if (n_win <= 0) return (int)cudaErrorInvalidValue;
   const size_t smem = 4 * smem_words(shared != 0, n_win, items_words, texels,
                                      c);
   *smem_out = (int)smem;
@@ -401,7 +425,7 @@ extern "C" int crafter_render_occupancy(int shared, int n_win,
     err = cudaDeviceGetAttribute(
         &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess || smem > (size_t)optin) return (int)err;
-  const RenderFn kernel = kernel_for(shared != 0);
+  const RenderFn kernel = kernel_for(shared != 0, n_win);
   err = prepare(kernel, smem);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
@@ -412,19 +436,22 @@ extern "C" int crafter_render_occupancy(int shared, int n_win,
 // out: (B, C) int32 r|g<<8|b<<16 when bytes == 0, (B, C, 3) uint8
 // otherwise.  shared: 1 for the shared-memory instantiation (the caller
 // has checked with crafter_render_occupancy that it fits), 0 for global.
+// src_bits: the width of the code words' source field.
 extern "C" int crafter_render(
     const int32_t* win79, const float* daylight, const int32_t* sleeping,
     const int32_t* seeds, const int32_t* mat, int n_mat, const int32_t* spr,
     int n_spr, const int32_t* item, int n_items, int n_amt, int texels,
     const int32_t* code, const float* vig, void* out, int bytes, int shared,
-    int b, int n_win, int c, void* stream) {
+    int b, int n_win, int c, int src_bits, void* stream) {
   if (b <= 0) return 0;
-  if (n_win > kMaxWin || n_win <= 0 || n_mat > kRows || n_spr > kRows)
+  if (n_win <= 0 || n_mat > kRows || n_spr > kRows || src_bits < 8
+      || src_bits > 24 || n_win >= (1 << src_bits)
+      || (staged(n_win) && src_bits != kStagedSrcBits))
     return (int)cudaErrorInvalidValue;
   const int items_words = n_items * n_amt * texels;
   const size_t smem = 4 * smem_words(shared != 0, n_win, items_words, texels,
                                      c);
-  const RenderFn kernel = kernel_for(shared != 0);
+  const RenderFn kernel = kernel_for(shared != 0, n_win);
   cudaError_t err = prepare(kernel, smem);
   int per_sm = 0, dev = 0, sms = 0;
   if (err == cudaSuccess)
@@ -450,6 +477,6 @@ extern "C" int crafter_render(
   const Tables t{mat, spr, item, code, vig, n_mat, n_spr, n_amt, texels};
   kernel<<<(unsigned)grid, kThreads, smem, (cudaStream_t)stream>>>(
       win79, daylight, sleeping, seeds, t, items_words, out, bytes, b, n_win,
-      c, seg_px);
+      c, seg_px, src_bits);
   return (int)cudaGetLastError();
 }

@@ -67,10 +67,16 @@ NOISE_SCALE = float(np.float32(95.0 / (1 << 24)))
 DESAT = float(np.float32(0.4))
 # Inventory amounts with a tile of their own (0..9; larger are clipped).
 N_AMOUNTS = 10
-# A pixel's code word in the compact tables: source index + 1 in bits 0..7
-# (0: none), the view bit, and the texel offset above it.
-CODE_VIEW_BIT = 8
-CODE_OFF_SHIFT = 9
+# A pixel's code word in the compact tables: source index + 1 in the low
+# CODE_SRC_BITS bits (0: none; more bits for windows of 256 values or more,
+# :func:`code_src_bits`), the view bit, and the texel offset above it.
+CODE_SRC_BITS = 8
+
+
+def code_src_bits(n_values: int) -> int:
+  """Width of the code words' source field for a window of ``n_values``
+  values (it holds 0..n_values)."""
+  return max(CODE_SRC_BITS, int(n_values).bit_length())
 
 
 @dataclasses.dataclass
@@ -107,10 +113,17 @@ class CompactTables:
   mat_tex: torch.Tensor   # (N_MATERIALS+1, T) int32 r|g<<8|b<<16
   spr_tex: torch.Tensor   # (15, T) int32 r|g<<8|b<<16|a<<24 (row 0 empty)
   item_tex: torch.Tensor  # (N_ITEMS, N_AMOUNTS, T) int32 r|g<<8|b<<16
-  code: torch.Tensor      # (C,) int32 (src + 1) | view << 8 | off << 9: off
-  #                         is the texel in the tile (view) or the offset of
-  #                         the texel at amount 0 in item_tex (strip)
+  code: torch.Tensor      # (C,) int32 (src + 1) | view << S | off << S + 1:
+  #                         off is the texel in the tile (view) or the
+  #                         offset of the texel at amount 0 in item_tex
+  #                         (strip)
   vignette: torch.Tensor  # (C,) float32, 0 off the view
+  n_win: int = 79         # window values a frame has (the atlas's view)
+
+  @property
+  def src_bits(self) -> int:
+    """S, the width of the code words' source field."""
+    return code_src_bits(self.n_win)
 
 
 @functools.lru_cache(maxsize=None)
@@ -300,9 +313,15 @@ def _bake_compact(size: Tuple[int, int], view: Tuple[int, int],
   off = np.where(in_view, px * uy + py_v,
                  np.where(item_ok, item * N_AMOUNTS * texels + px * uy + py_s,
                           0))
-  code = (parts['src'] + 1) | (in_view.astype(np.int64) << CODE_VIEW_BIT) \
-      | (off << CODE_OFF_SHIFT)
+  n_win = view[0] * (view[1] - item_rows) + rules.N_ITEMS
+  bits = code_src_bits(n_win)
+  code = (parts['src'] + 1) | (in_view.astype(np.int64) << bits) \
+      | (off << (bits + 1))
+  if code.max() >= 2 ** 31:
+    raise ValueError(f'the render code words of size {size} and view {view} '
+                     'do not fit in 31 bits')
   return dict(
+      n_win=n_win,
       mat_tex=_i32(_pk3(mat_tex).reshape(mat_tex.shape[0], texels)),
       spr_tex=_i32(_pk4(spr_tex).reshape(spr_tex.shape[0], texels)),
       item_tex=_i32(_pk3(item_tiles).reshape(rules.N_ITEMS, N_AMOUNTS,
@@ -313,6 +332,7 @@ def _bake_compact(size: Tuple[int, int], view: Tuple[int, int],
 @functools.lru_cache(maxsize=8)
 def _bake_atlas(size, view, item_rows, device: str) -> Atlas:
   as_t = lambda tables: {name: torch.as_tensor(a, device=device)
+                         if isinstance(a, np.ndarray) else a
                          for name, a in tables.items()}
   return Atlas(**as_t(_bake_tables(size, view, item_rows)),
                compact=CompactTables(**as_t(_bake_compact(size, view,
@@ -327,17 +347,17 @@ def bake_atlas(size: Tuple[int, int] = (64, 64),
   return _bake_atlas(tuple(size), tuple(view), int(item_rows), str(device))
 
 
-def _code_fields(code: torch.Tensor):
+def _code_fields(code: torch.Tensor, src_bits: int = CODE_SRC_BITS):
   """A compact pixel code -> (source index + 1, view flag, texel offset)."""
-  return (code & 255, ((code >> CODE_VIEW_BIT) & 1) == 1,
-          code >> CODE_OFF_SHIFT)
+  return (code & ((1 << src_bits) - 1), ((code >> src_bits) & 1) == 1,
+          code >> (src_bits + 1))
 
 
 def expand_compact(t: CompactTables) -> dict:
   """The atlas's per-pixel tables rebuilt from the compact ones:
   ``mat_planes``, ``spr_planes``, ``src``, ``vignette`` and ``view_mask``
   as :class:`Atlas` holds them."""
-  src1, view, off = _code_fields(t.code)
+  src1, view, off = _code_fields(t.code, t.src_bits)
   strip = ~view & (src1 > 0)
   texels = t.mat_tex.shape[1]
   off_v = torch.where(view, off, 0).long()
@@ -468,7 +488,7 @@ def render_win79_compact(win79: torch.Tensor, daylight: torch.Tensor,
   texels from the tile textures, a strip pixel its item tile's texel at
   the amount it shows; frames by day skip the keyed noise, which cannot
   reach them.  Equal to :func:`render_win79_plain` bit for bit."""
-  src1, view, off = _code_fields(tables.code)
+  src1, view, off = _code_fields(tables.code, tables.src_bits)
   strip = ~view & (src1 > 0)
   ids = torch.where(src1 > 0,
                     win79.to(torch.int32)[:, (src1 - 1).clamp_min(0).long()],

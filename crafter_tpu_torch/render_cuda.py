@@ -5,7 +5,9 @@ plain twin is ``render.render_win79_plain``.  For CUDA tensors it launches
 the kernel on the atlas's compact tables (``render.CompactTables``): the
 shared-memory instantiation where they fit in a block's shared memory (64
 x 64), else the instantiation that reads them from global memory; for CPU
-tensors it runs the twin.  ``render_win79.launches`` counts kernel
+tensors it runs the twin.  A window is 79 values for the 9 x 9 view, or
+any other count (a view of the whole area: one a world cell and 16),
+which the atlas's view fixes.  ``render_win79.launches`` counts kernel
 launches.
 """
 
@@ -22,7 +24,6 @@ from . import render as render_lib
 
 OUT_FORMATS = ('frames', 'packed', 'words')
 INSTANTIATIONS = ('auto', 'shared', 'global')
-N_WIN = 79   # window values of a frame (63 view tiles, 16 inventory amounts)
 
 
 def render_win79(win79: torch.Tensor, daylight: torch.Tensor,
@@ -30,7 +31,8 @@ def render_win79(win79: torch.Tensor, daylight: torch.Tensor,
                  atlas: render_lib.Atlas, size: Tuple[int, int] = (64, 64),
                  out_format: str = 'frames',
                  instantiation: str = 'auto') -> torch.Tensor:
-  """Frame synthesis on prepared (B, 79) window rows, (B,) ``daylight``
+  """Frame synthesis on prepared (B, N) window rows (N = 79 for the 9 x 9
+  view, ``render.window_prep``'s width in general), (B,) ``daylight``
   float32, ``sleeping`` and ``seeds``.  Returns (B, size[1], size[0], 3)
   uint8 (``'frames'``), (B, C) int32 ``r | g<<8 | b<<16`` (``'packed'``) or
   the frames' byte stream as (B, 3C/4) int32 (``'words'``).
@@ -69,13 +71,13 @@ def _occupancy(shared: bool, n_win: int, items_words: int, texels: int,
   return blocks.value, smem.value
 
 
-def occupancy(atlas: render_lib.Atlas, shared: bool = True,
-              n_win: int = N_WIN) -> tuple[int, int]:
+def occupancy(atlas: render_lib.Atlas,
+              shared: bool = True) -> tuple[int, int]:
   """``(blocks per SM, shared bytes per block)`` of the render kernel's
-  shared (or global) instantiation on ``atlas``'s tables, from the CUDA
-  occupancy calculator; 0 blocks where the tables do not fit."""
+  shared (or global) instantiation on ``atlas``'s tables and windows, from
+  the CUDA occupancy calculator; 0 blocks where the tables do not fit."""
   t = atlas.compact
-  return _occupancy(shared, n_win, t.item_tex.numel(), t.mat_tex.shape[1],
+  return _occupancy(shared, t.n_win, t.item_tex.numel(), t.mat_tex.shape[1],
                     t.code.shape[0], t.code.device.index or 0)
 
 
@@ -86,6 +88,9 @@ def _launch_render(win79, daylight, sleeping, seeds, atlas, size, out_format,
   if t is None:
     raise ValueError('the atlas has no compact tables: make it with '
                      'render.bake_atlas')
+  if n_win != t.n_win:
+    raise ValueError(f'windows of {n_win} values do not match the atlas '
+                     f'(made for {t.n_win})')
   c = t.code.shape[0]
   dev = win79.device
   for name, dt in (('mat_tex', torch.int32), ('spr_tex', torch.int32),
@@ -104,7 +109,7 @@ def _launch_render(win79, daylight, sleeping, seeds, atlas, size, out_format,
                        f'want {b} values on {dev}')
   cols = [col.reshape(b).contiguous() for col in cols]
   win = win79.to(torch.int32).contiguous()
-  fits = occupancy(atlas, True, n_win)[0] > 0
+  fits = occupancy(atlas, True)[0] > 0
   if instantiation == 'shared' and not fits:
     raise ValueError('the compact tables do not fit in shared memory')
   shared = fits if instantiation == 'auto' else instantiation == 'shared'
@@ -120,7 +125,7 @@ def _launch_render(win79, daylight, sleeping, seeds, atlas, size, out_format,
       t.mat_tex.data_ptr(), t.mat_tex.shape[0], t.spr_tex.data_ptr(),
       t.spr_tex.shape[0], t.item_tex.data_ptr(), items, n_amt, texels,
       t.code.data_ptr(), t.vignette.data_ptr(), out.data_ptr(),
-      0 if packed else 1, int(shared), b, n_win, c,
+      0 if packed else 1, int(shared), b, n_win, c, t.src_bits,
       torch.cuda.current_stream(dev).cuda_stream), 'render_win79')
   if out_format == 'words':
     return out.reshape(b, -1).view(torch.int32)

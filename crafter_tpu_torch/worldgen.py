@@ -1,12 +1,16 @@
 """Procedural world generation for a batch of keys.
 
-The port's counterpart of ``crafter_tpu/worldgen.py:generate_world`` in its
-2-D noise modes: the same 13 noise channels, material cascade, mob seeding
-and ``chunk_touched``, from the same threefry draws, so every leaf equals
-the JAX package's world for the same key.  The noise runs through the CUDA
-kernel wrapper in its shared form (``noise_mode`` 'auto': the 13 channels'
-points once and a seed a world and channel, as the JAX package vmaps its
-kernel) or the plain twin on the expanded per-point inputs ('fast').
+The port's counterpart of ``crafter_tpu/worldgen.py:generate_world``: the
+same 13 noise channels, material cascade, mob seeding and
+``chunk_touched``, from the same threefry draws, so every leaf equals the
+JAX package's world for the same key.  In the 2-D modes the noise runs
+through the CUDA kernel wrapper in its shared form (``noise_mode`` 'auto':
+the 13 channels' points once and a seed a world and channel, as the JAX
+package vmaps its kernel) or the plain twin on the expanded per-point
+inputs ('fast').  In 'compat' it is the permutation-table OpenSimplex
+(``ops/noise.py:noise3``, a table a world drawn by ``perm_from_key``) at
+the 3-D points ``(x / dx, y / dy, z)``: plain PyTorch on every device, as
+its JAX counterpart is plain jnp.
 
 Float details that keep it bit-exact: divisions by constants are multiplies
 by float32 reciprocals and single-use products feeding a sum are fused
@@ -80,6 +84,40 @@ def _mat_in(m: torch.Tensor, member_table) -> torch.Tensor:
   return out
 
 
+def channel_points3(cfg: EnvConfig, device) -> torch.Tensor:
+  """(13 * W * H, 3) float32 points of the 'compat' noise: the 2-D channel
+  points with each channel's z (made once per area and device)."""
+  return _channel_points3(tuple(cfg.area), str(torch.device(device)))
+
+
+@functools.lru_cache(maxsize=8)
+def _channel_points3(area, device: str) -> torch.Tensor:
+  xy = _channel_points(area, device)
+  z = torch.tensor([ch[4] for ch in CHANNELS], dtype=torch.float32,
+                   device=device)
+  z = z[:, None, None, None].expand(xy.shape[:-1] + (1,))
+  return torch.cat([xy, z], -1).reshape(-1, 3)
+
+
+def _compat_channels(keys: torch.Tensor, cfg: EnvConfig):
+  """The 13 channels in 'compat' mode and the two composed ones, as XLA
+  fuses them in the JAX package: the normalising multiply by 1/103 sits
+  in each consumer, so ``water`` and ``mountain`` fuse the first channel's
+  un-normalised sum, ``fma(t1, 1/103, n2 * 0.15)``.  Returns ``(n,
+  water_n, mountain_n)`` with ``mountain_n`` still to be multiplied by
+  1/1.3 (fused with the start term by the caller)."""
+  w, h = cfg.area
+  r = keys.shape[0]
+  perm = noise.perm_from_key(prng.split(keys, 3)[:, 0])      # (R, 256)
+  t = noise.noise3_total(channel_points3(cfg, keys.device)[None], perm)
+  t = t.reshape(r, len(CHANNELS), w, h)
+  c = noise.F32_INV_NORM_3D
+  n = t * c
+  water_n = fma32(t[:, 1], c, n[:, 2] * 0.15)
+  mountain_n = fma32(t[:, 3], c, n[:, 4] * 0.3)
+  return n, water_n, mountain_n
+
+
 def noise_seeds(keys: torch.Tensor) -> torch.Tensor:
   """(R, 13) int32 noise seeds of a batch of worlds: one a world and
   channel."""
@@ -112,16 +150,21 @@ def generate_world(keys: torch.Tensor, cfg: EnvConfig) -> state_lib.State:
 
   sub = prng.split(keys, 3)
   k_mat, k_obj = sub[:, 1], sub[:, 2]
-  if cfg.noise_mode == 'fast':
-    n = noise.noise2_fast(*noise_inputs(keys, cfg))
+  compat = cfg.noise_mode == 'compat'
+  if compat:
+    n, water_n, mountain_n = _compat_channels(keys, cfg)
   else:
-    # The shared form: the channels' points once, a seed a world and channel.
-    n = noise_cuda.noise2(channel_points(cfg, dev).reshape(len(CHANNELS),
-                                                           w * h, 2),
-                          noise_seeds(keys))
-  n = n.reshape(r, len(CHANNELS), w, h)
-  water_n = fma32(0.15, n[:, 2], n[:, 1])
-  mountain_n = fma32(0.3, n[:, 4], n[:, 3]) * _recip(1.3)
+    if cfg.noise_mode == 'fast':
+      n = noise.noise2_fast(*noise_inputs(keys, cfg))
+    else:
+      # The shared form: the channels' points once, a seed a world and
+      # channel.
+      n = noise_cuda.noise2(
+          channel_points(cfg, dev).reshape(len(CHANNELS), w * h, 2),
+          noise_seeds(keys))
+    n = n.reshape(r, len(CHANNELS), w, h)
+    water_n = fma32(0.15, n[:, 2], n[:, 1])
+    mountain_n = fma32(0.3, n[:, 4], n[:, 3]) * _recip(1.3)
 
   # --- material pass (worldgen.py:21-61) -------------------------------
   xs = torch.arange(w, device=dev)[:, None]
@@ -132,7 +175,11 @@ def generate_world(keys: torch.Tensor, cfg: EnvConfig) -> state_lib.State:
       torch.float32)
   start = sigmoid32(fma32(2.0, n[:, 0], 4.0 - dist))
   water = fma32(-2.0, start, water_n + 0.1)
-  mountain = fma32(-0.3, water, mountain_n - 4.0 * start)
+  if compat:  # XLA fuses the 1/1.3 into the start term there
+    mountain = fma32(mountain_n, _recip(1.3), -4.0 * start)
+  else:
+    mountain = mountain_n - 4.0 * start
+  mountain = fma32(-0.3, water, mountain)
 
   u = prng.uniform(k_mat, (4, w, h))
   is_start = start > 0.5

@@ -97,6 +97,18 @@ def test_worldgen_on_card_equals_cpu(dev):
   assert noise_cuda.noise2.launches_by_rows[320] == before + 1
 
 
+def test_compat_worldgen_on_card_equals_cpu(dev):
+  """The 'compat' mode's permutation-table noise runs as plain PyTorch on
+  the card (no kernel): its worlds must equal the CPU's, which the CPU
+  tests hold to the JAX package, and it launches no 2-D noise kernel."""
+  cfg = ct.EnvConfig(noise_mode='compat')
+  keys = ct.prng.fold_in(ct.home_keys(6, 24, dev), 1)
+  before = noise_cuda.noise2.launches
+  _assert_equal(worldgen.generate_world(keys, cfg),
+                worldgen.generate_world(keys.cpu(), cfg))
+  assert noise_cuda.noise2.launches == before
+
+
 def test_render_kernel_matches_plain_twin(dev):
   """Both outputs of the render kernel on frames of every kind: steps over
   a whole day (a share at night), a share sleeping, players at the edge."""
@@ -192,6 +204,50 @@ def test_render_daylight_outside_unit_interval(dev, instantiation):
     got = ct.render_win79(win, light, slp, seeds, atlas, cfg.size, fmt,
                           instantiation=instantiation)
     assert torch.equal(got, ct.render.format_pixels(want, cfg.size, fmt)), fmt
+
+
+def _whole_area_frames(dev, area, size, n, seed):
+  """``n`` frames of worlds viewed whole (view = area, run_terrain's
+  shape): players anywhere, a third asleep, steps over a whole day."""
+  cfg = ct.EnvConfig(area=area, view=area, size=size)
+  gen = torch.Generator(device=dev)
+  gen.manual_seed(seed)
+  rnd = lambda hi, shape: torch.randint(0, hi, shape, generator=gen,
+                                        device=dev, dtype=torch.int32)
+  env = ct.vec_reset(ct.home_keys(seed, n, dev), cfg).env
+  win = ct.window_prep(
+      ct.pack_cells(env.mat_map, env.ent.etype, env.ent.aux, env.ent.facing),
+      torch.stack([rnd(area[0], (n,)), rnd(area[1], (n,))], 1),
+      rnd(4, (n,)), rnd(3, (n,)) == 0, rnd(13, (n, 16)), cfg)
+  steps = rnd(300, (n,))
+  atlas = ct.bake_atlas(size, cfg.view, cfg.item_rows, dev)
+  return (win, ct.daylight(steps, cfg.day_length), rnd(3, (n,)) == 0,
+          ct.noise_seed(env.key, steps), atlas, cfg)
+
+
+@pytest.mark.parametrize('area,size,n', [((16, 16), (128, 128), 13),
+                                         ((64, 64), (256, 256), 9),
+                                         ((64, 64), (1024, 1024), 4)])
+def test_render_kernel_whole_area_view(dev, area, size, n):
+  """A view of the whole area (run_terrain): windows of one value a world
+  cell and 16 (256 and 4048 here, past the 128 staged in shared memory
+  and the 8-bit source field), both instantiations where they fit: bit
+  for bit the twin."""
+  win, light, slp, seeds, atlas, cfg = _whole_area_frames(dev, area, size, n,
+                                                          area[0] + n)
+  assert win.shape[1] == area[0] * (area[1] - 1) + 16 == atlas.compact.n_win
+  want = ct.render_win79_plain(win, light, slp, seeds, atlas)
+  before = ct.render_win79.launches
+  insts = ['global'] + (['shared'] if render_cuda.occupancy(atlas)[0] else [])
+  for inst in insts:
+    for fmt in ('packed', 'frames'):
+      got = ct.render_win79(win, light, slp, seeds, atlas, size, fmt,
+                            instantiation=inst)
+      assert torch.equal(got, ct.render.format_pixels(want, size, fmt)), (
+          inst, fmt)
+  assert ct.render_win79.launches == before + 2 * len(insts)
+  with pytest.raises(ValueError, match='do not match the atlas'):
+    ct.render_win79(win[:, :-1], light, slp, seeds, atlas, size)
 
 
 def test_render_kernel_at_512(dev):

@@ -1,14 +1,18 @@
 """The port stands alone: ``crafter_tpu_torch``, ``chip_smoke.py``, the
-port's bench ``bench_cuda.py``, the GPU tools ``tools/bench_roll_cuda.py``
-and ``tools/bench_paths_cuda.py``
-and ``tests/dense_states.py`` (which ``chip_smoke.py`` imports) import
+port's bench ``bench_cuda.py``, the GPU tools ``tools/bench_roll_cuda.py``,
+``tools/bench_paths_cuda.py`` and ``tools/bench_render_cuda.py``
+and ``tests/dense_states.py`` and ``tests/parity_digest.py`` (which
+``chip_smoke.py`` imports) import
 neither JAX (nor flax, optax, orbax or chex) nor the JAX package nor an
 image library (PIL, imageio: the card's
 machine has none), checked both in a fresh interpreter (``sys.modules``
 after importing every module) and by an AST scan of every import statement
-in their sources."""
+in their sources.  pygame and matplotlib, which only ``run_gui`` and
+``plots`` use, are imported inside their functions: importing every module
+loads neither."""
 
 import ast
+import functools
 import json
 import pathlib
 import subprocess
@@ -25,7 +29,10 @@ FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'chex', 'crafter_tpu',
 SCRIPTS = [ROOT / 'chip_smoke.py', ROOT / 'bench_cuda.py',
            ROOT / 'tools' / 'bench_roll_cuda.py',
            ROOT / 'tools' / 'bench_paths_cuda.py',
-           ROOT / 'tests' / 'dense_states.py']
+           ROOT / 'tools' / 'bench_render_cuda.py',
+           ROOT / 'tests' / 'dense_states.py',
+           ROOT / 'tests' / 'parity_digest.py']
+LAZY = ('pygame', 'matplotlib')
 
 
 def _sources():
@@ -52,7 +59,10 @@ def test_no_forbidden_import_statements(path):
     assert not bad, f'{path.name}:{node.lineno} imports {bad}'
 
 
-def test_no_forbidden_modules_loaded():
+@functools.lru_cache(maxsize=None)
+def _loaded_modules():
+  """``sys.modules`` of a fresh interpreter that imported every module of
+  the port and ran every script's module level."""
   modules = sorted(
       'crafter_tpu_torch.' + str(p.relative_to(PORT).with_suffix(''))
       .replace('/', '.').replace('.__init__', '')
@@ -67,9 +77,23 @@ def test_no_forbidden_modules_loaded():
   out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
   assert out.returncode == 0, out.stderr
-  loaded = json.loads(out.stdout.strip().splitlines()[-1])
+  return tuple(json.loads(out.stdout.strip().splitlines()[-1]))
+
+
+def test_no_forbidden_modules_loaded():
+  loaded = _loaded_modules()
   bad = [m for m in loaded if _forbidden(m)]
   assert not bad, bad
   for name in ('step_cuda', 'render_cuda', 'ops.noise_cuda', 'ops.roll_cuda',
-               'ppo', 'models.cnn', 'checkpoint', 'run_train'):
+               'ppo', 'models.cnn', 'checkpoint', 'run_train', 'parity',
+               'ops.noise_host', 'run_random', 'run_terrain', 'run_gui',
+               'plots'):
     assert f'crafter_tpu_torch.{name}' in loaded, name
+
+
+def test_gui_and_plot_libraries_not_loaded():
+  loaded = _loaded_modules()
+  assert 'crafter_tpu_torch.run_gui' in loaded
+  assert 'crafter_tpu_torch.plots' in loaded
+  bad = [m for m in loaded if m.split('.')[0] in LAZY]
+  assert not bad, bad

@@ -332,6 +332,39 @@ def test_compact_tables_layout():
   assert int(view.sum()) == 63 * 49
 
 
+@pytest.mark.parametrize('size,view', [((128, 128), (16, 16)),
+                                       ((256, 256), (64, 64))], ids=str)
+def test_compact_tables_for_whole_area_views(size, view):
+  """A view of the whole area (run_terrain) has windows of 256 and 4048
+  values: the code words' source field widens to 9 and 12 bits, the
+  tables still expand to the atlas, and the render through them equals
+  ``render_win79_plain`` by day, at night and asleep."""
+  atlas = ct.bake_atlas(size, view, 1, 'cpu')
+  t = atlas.compact
+  assert t.n_win == view[0] * (view[1] - 1) + 16
+  assert t.src_bits == t.n_win.bit_length()
+  planes = render_lib.expand_compact(t)
+  for name in ('mat_planes', 'spr_planes', 'src', 'vignette', 'view_mask'):
+    assert torch.equal(planes[name], getattr(atlas, name)), name
+  src1, view_bit, _ = render_lib._code_fields(t.code, t.src_bits)
+  assert int(src1.max()) == t.n_win and int(view_bit.sum()) > 0
+  rs = np.random.RandomState(sum(size))
+  n = 6
+  mid = rs.randint(0, 14, size=(n, t.n_win - 16))
+  tex = np.where(rs.rand(n, t.n_win - 16) < 0.3,
+                 rs.randint(1, 15, size=(n, t.n_win - 16)), 0)
+  win = T(np.concatenate([mid | (tex << 4), rs.randint(0, 10, size=(n, 16))],
+                         1).astype(np.int32))
+  light = ct.daylight(T(np.array([20, 150, 200, 250, 100, 280], np.int32)),
+                      300)
+  slp = T(np.array([0, 0, 1, 0, 1, 0], np.int32))
+  seeds = T(rs.randint(-2 ** 31, 2 ** 31 - 1, size=n).astype(np.int32))
+  assert bool((light < 0.5).any()) and bool((light >= 0.5).any())
+  want = ct.render_win79_plain(win, light, slp, seeds, atlas)
+  assert torch.equal(render_lib.render_win79_compact(win, light, slp, seeds,
+                                                     t), want)
+
+
 def _fma_frames():
   """The frames of :func:`test_fused_multiply_adds_placed_as_xla`."""
   picks = {101: [961, 113, 187, 298], 104: [219, 598, 121, 536]}
