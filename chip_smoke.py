@@ -86,6 +86,25 @@ Run from the repository root on a machine with an NVIDIA H100:
    PNG inflating to it, and the kernel on that window timed against the
    twin; ``run_random --envs 4096 --steps 409600`` (its env-steps/s) and
    ``run_random`` on one env for 200 steps with ``--record``.
+6. Drives the multi-device layer (``crafter_tpu_torch.parallel``), each
+   phase with its launches counted from 0 after its set-up (the initial
+   reset, ``init``, the demo's warm-up), in the ranks' own processes for
+   the ranks started as subprocesses: D1, one NCCL rank in this process: the
+   sharded group step on 4096 envs over 3 groups equal to
+   ``vec_step_group``, ``psum_stats`` through NCCL, and the sharded
+   ``VecEnv`` over 30 ticks equal to ``VecEnv`` (obs, reward, done, info);
+   D2, two gloo ranks on the one card (NCCL refuses two ranks on one GPU):
+   4096 envs, 2048 a rank, 3 groups whose per-rank reset budget overflows,
+   the gathered leaves equal to ``vec_step_group`` run on each half with the
+   rank's budget; D3, ``tools/demo_64k_cuda.py --num_envs 65536`` as one
+   NCCL rank and as two gloo ranks (both records printed; every env stepped
+   or reset); D4, ``make_sharded_train`` on two gloo ranks at the training
+   path's sizes, 2 updates (each split into rollout and learn; the rate is
+   the second's) with finite metrics equal on both ranks and
+   parameters bitwise equal across ranks after each, every layer changed,
+   and a 64-env rollout of 8 ticks under deterministic algorithms equal to
+   the one-process ``PPO``'s.  Rates of ranks sharing one card are printed,
+   not compared.  Prints the phase's results as one JSON line.
 
 Every kernel's time is taken with the wrapper (CUDA events) and on the
 device alone (``torch.profiler``); the balance also prints the host's
@@ -169,6 +188,14 @@ OPS_NOISE3_POINT = 800
 OPS_RENDER_TEXEL = 30
 OPS_RENDER_LIGHT = 75
 OPS_RENDER_NOISE = 25
+# Phase 6, multi-device: 4096 envs, an episode cap that ends every episode
+# in the third group (so that a reset budget overflows), and the demo at
+# config 4's width.
+D_LENGTH, D_SEED, D_GROUPS = 25, 17, 3
+D_VECENV_TICKS = 30
+DEMO_ENVS, DEMO_STEPS = 65536, 100
+D_SMALL_ENVS, D_SMALL_TICKS = 64, 8
+RANK_TIMEOUT = 420          # seconds a subprocess rank may take
 
 
 def fail(msg):
@@ -187,6 +214,207 @@ def kernel_name(mangled):
       height = re.match(r'ILi(\d+)E', mangled[end + len(ident):])
       name = ident + (f'<{height.group(1)}>' if height else '')
   return name
+
+
+def free_port():
+  import socket
+  with socket.socket() as s:
+    s.bind(('127.0.0.1', 0))
+    return s.getsockname()[1]
+
+
+def counted_wrappers():
+  """The kernel wrappers of the sharded paths, by name."""
+  from crafter_tpu_torch import render_cuda, state, step_cuda
+  from crafter_tpu_torch.ops import noise_cuda
+  return (('group_tick', step_cuda.group_tick), ('tick', step_cuda.tick),
+          ('balance', step_cuda.balance), ('noise2', noise_cuda.noise2),
+          ('render_win79', render_cuda.render_win79),
+          ('daylight', state.daylight))
+
+
+def zero_launch_counts():
+  """Sets the launch counts of this process's wrappers to 0."""
+  for _, fn in counted_wrappers():
+    fn.launches = 0
+
+
+def launch_counts():
+  """The launches counted by the kernel wrappers of this process."""
+  return {name: fn.launches for name, fn in counted_wrappers()}
+
+
+def np_rows(tree, rows, axis=0):
+  """``rows`` along ``axis`` of every array of nested dicts of numpy arrays
+  (``to_numpy`` of a state); arrays with no such axis are kept."""
+  if isinstance(tree, dict):
+    return {name: np_rows(v, rows, axis) for name, v in tree.items()}
+  return tree if tree.ndim <= axis else tree[(slice(None),) * axis + (rows,)]
+
+
+def np_diffs(a, b, path=''):
+  """The paths where two nested dicts of numpy arrays differ in shape,
+  dtype or any bit."""
+  if isinstance(a, dict):
+    return [p for name in a for p in np_diffs(a[name], b[name],
+                                              f'{path}.{name}')]
+  same = (a.shape == b.shape and a.dtype == b.dtype
+          and a.tobytes() == b.tobytes())
+  return [] if same else [path]
+
+
+def d_actions(prng, group, k, n, dev, rows=None):
+  """Group ``group``'s (K, N) actions of phase 6, or a rank's columns of
+  them (``rows``: its slice of the N envs)."""
+  key = prng.fold_in(prng.key(D_SEED, dev), group)
+  if rows is None:
+    return prng.randint(key, 0, 17, (k, n))
+  return prng.randint(key, 0, 17, (k, rows.stop - rows.start),
+                      rows=(rows.start, n), axis=1)
+
+
+def rank_group(ct, mesh):
+  """D2 on one rank: 3 sharded groups of 4096 envs; rank 0 then holds the
+  gathered leaves against ``vec_step_group`` on each half with the rank's
+  budget (ranks are independent, so the comparison is exact)."""
+  import torch
+  from crafter_tpu_torch.parallel import mesh as mesh_lib
+  n, dev = 4096, mesh.device
+  cfg = ct.EnvConfig(reward=False, length=D_LENGTH)
+  k = cfg.balance_every
+  rows = mesh.rows(n)
+  vs = ct.vec_reset_chunked(ct.home_keys(D_SEED, n, dev)[rows], cfg)
+  step = mesh_lib.make_sharded_group_step(mesh, cfg, RESET_BATCH)
+  zero_launch_counts()          # count the sharded groups' launches only
+  outs = []
+  for g in range(D_GROUPS):
+    vs, out = step(vs, d_actions(ct.prng, g, k, n, dev, rows))
+    outs.append(out)
+  torch.cuda.synchronize()
+  res = dict(launches=launch_counts(), pending=int(vs.pending.sum()))
+  got = mesh_lib.gather_batch(vs, mesh, n)
+  got_outs = [mesh_lib.gather_batch(o, mesh, n, axis=1) for o in outs]
+  if mesh.rank == 0:
+    got, got_outs = ct.to_numpy(got), [ct.to_numpy(o) for o in got_outs]
+    rb_local = -(-RESET_BATCH // mesh.size)
+    diffs = []
+    for r in range(mesh.size):
+      part = slice(r * n // mesh.size, (r + 1) * n // mesh.size)
+      ref = ct.vec_reset_chunked(ct.home_keys(D_SEED, n, dev)[part], cfg)
+      for g in range(D_GROUPS):
+        ref, out = ct.vec_step_group(
+            ref, d_actions(ct.prng, g, k, n, dev)[:, part], cfg, rb_local)
+        diffs += np_diffs(np_rows(got_outs[g], part, 1), ct.to_numpy(out),
+                          f'rank {r} group {g} outs')
+      diffs += np_diffs(np_rows(got, part), ct.to_numpy(ref),
+                        f'rank {r} final')
+    res.update(diffs=diffs, episodes=int(got['episode'].sum()))
+  return res
+
+
+def rank_train(ct, mesh):
+  """D4 on one rank: ``make_sharded_train`` at the training path's sizes,
+  two updates; then a rollout of 64 envs over 8 ticks under deterministic
+  algorithms, which rank 0 holds against the one-process ``PPO``'s."""
+  import hashlib
+  import torch
+  from crafter_tpu_torch.parallel import mesh as mesh_lib
+  dev = mesh.device
+  cfg = ct.PPOConfig(num_envs=PPO_ENVS, rollout_len=PPO_ROLLOUT,
+                     epochs=PPO_EPOCHS, minibatches=PPO_MINIBATCHES,
+                     reset_batch=PPO_RESET)
+  ppo, init, train_step, _ = ct.make_sharded_train(ct.EnvConfig(), cfg,
+                                                   mesh)
+  # The split of an update: the time where the rollout hands over to the
+  # learner.
+  handover = []
+  learn = ppo._learn
+
+  def marked_learn(*args):
+    torch.cuda.synchronize()
+    handover.append(time.perf_counter())
+    return learn(*args)
+
+  ppo._learn = marked_learn
+  # The learner's gradient all-reduces, timed on the host's clock.
+  grad_sum_s = []
+  sum_grads = ppo._sum_grads
+
+  def timed_sum_grads(policy):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    sum_grads(policy)
+    torch.cuda.synchronize()
+    grad_sum_s.append(time.perf_counter() - t)
+
+  ppo._sum_grads = timed_sum_grads
+  ts = init(ct.prng.key(0, dev))
+  zero_launch_counts()          # count the two updates' launches only
+  params0 = {name: q.detach().clone()
+             for name, q in ts.params.named_parameters()}
+  updates = []
+  for _ in range(2):
+    grad_sum_s.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ts, metrics = train_step(ts)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    flat = torch.cat([q.detach().reshape(-1) for q in ts.params.parameters()])
+    updates.append(dict(
+        ms=(t1 - t0) * 1e3, rollout_ms=(handover[-1] - t0) * 1e3,
+        learn_ms=(t1 - handover[-1]) * 1e3,
+        grad_sum_ms=sum(grad_sum_s) * 1e3, grad_sums=len(grad_sum_s),
+        metrics={name: float(v) for name, v in metrics.items()},
+        params=hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()))
+  unchanged = [
+      layer for layer in ('conv1', 'conv2', 'conv3', 'dense', 'logits',
+                          'value')
+      if all(torch.equal(q.detach(), params0[name])
+             for name, q in ts.params.named_parameters()
+             if name.startswith(layer + '.'))]
+  res = dict(launches=launch_counts(), updates=updates, unchanged=unchanged,
+             update=ts.update, env_steps=ts.env_steps,
+             local_envs=int(ts.obs.shape[0]))
+  del ts, params0
+  torch.cuda.empty_cache()
+  torch.use_deterministic_algorithms(True, warn_only=True)
+  env_cfg = ct.EnvConfig(length=5)       # every episode ends in the rollout
+  small = ct.PPOConfig(num_envs=D_SMALL_ENVS, rollout_len=D_SMALL_TICKS,
+                       epochs=1, minibatches=2, reset_batch=8,
+                       time_minibatch=True)
+  _, init, train_step, _ = ct.make_sharded_train(env_cfg, small, mesh)
+  ts, metrics = train_step(init(ct.prng.key(1, dev)))
+  got = ct.to_numpy(mesh_lib.gather_batch(dict(vec=ts.vec, obs=ts.obs), mesh,
+                                          D_SMALL_ENVS))
+  if mesh.rank == 0:
+    one = ct.PPO(env_cfg, small, device=dev)
+    ts1, metrics1 = one.train_step(one.init(ct.prng.key(1, dev)))
+    res['small'] = dict(
+        diffs=np_diffs(got, ct.to_numpy(dict(vec=ts1.vec, obs=ts1.obs))),
+        episodes_done=int(metrics['episodes_done']),
+        episodes_done_one=int(metrics1['episodes_done']))
+  torch.use_deterministic_algorithms(False)
+  return res
+
+
+def rank_main(argv):
+  """One rank of phase 6 in a process of its own, on the one card through
+  gloo: ``chip_smoke.py --rank {group|train} RANK WORLD PORT``.  Prints its
+  results as one line ``RESULT {...}``."""
+  os.environ.setdefault('CUBLAS_WORKSPACE_CONFIG', ':4096:8')
+  phase, rank, world, port = argv[0], int(argv[1]), int(argv[2]), argv[3]
+  import torch.distributed as dist
+  sys.path.insert(0, str(Path(__file__).resolve().parent))
+  import crafter_tpu_torch as ct
+  from crafter_tpu_torch.parallel import mesh as mesh_lib
+  mesh_lib.distributed_init(f'127.0.0.1:{port}', world, rank, backend='gloo',
+                            device='cuda')
+  mesh = mesh_lib.dp_mesh()
+  res = {'group': rank_group, 'train': rank_train}[phase](ct, mesh)
+  dist.barrier()
+  dist.destroy_process_group()
+  print('RESULT ' + json.dumps(res), flush=True)
 
 
 def card_line():
@@ -1478,6 +1706,227 @@ def main():
   print(f'C3 run_random, one env, 200 steps with --record: 2 episodes '
         f'recorded ({recorded}); launches {random_env_counts}', flush=True)
 
+  # 6. Multi-device (crafter_tpu_torch.parallel).  D1: one NCCL rank in
+  # this process.  The one-process runs go first, then the sharded ones
+  # with the counts set to 0 just before.
+  import torch.distributed as dist
+  from crafter_tpu_torch.parallel import mesh as mesh_lib
+  torch.cuda.empty_cache()
+  d_start = time.perf_counter()
+  d_cfg = dataclasses.replace(cfg, length=D_LENGTH)
+  mesh_lib.distributed_init(f'127.0.0.1:{free_port()}', 1, 0,
+                            backend='nccl')
+  if dist.get_backend() != 'nccl' or dist.get_world_size() != 1:
+    fail(f'D1: backend {dist.get_backend()}, {dist.get_world_size()} ranks')
+  mesh = mesh_lib.dp_mesh()
+  vs0 = ct.vec_reset_chunked(ct.home_keys(D_SEED, N_ENVS, dev), d_cfg)
+  want, vs = [], vs0
+  for g in range(D_GROUPS):
+    vs, outs = ct.vec_step_group(vs, d_actions(ct.prng, g, k, N_ENVS, dev),
+                                 d_cfg, RESET_BATCH)
+    want.append((vs, outs))
+  zero_counts()
+  sstep = mesh_lib.make_sharded_group_step(mesh, d_cfg, RESET_BATCH)
+  vs = mesh_lib.shard_batch(vs0, mesh, N_ENVS)
+  got = []
+  for g in range(D_GROUPS):
+    vs, outs = sstep(vs, d_actions(ct.prng, g, k, N_ENVS, dev,
+                                   mesh.rows(N_ENVS)))
+    got.append((vs, outs))
+  torch.cuda.synchronize()
+  d1_group_counts = read_counts('D1 sharded group', ('group_tick', 'balance',
+                                                     'noise2'))
+  for g, ((va, oa), (vb, ob)) in enumerate(zip(got, want)):
+    if max_err(va, vb, f'D1 group {g}') or max_err(oa, ob, f'D1 outs {g}'):
+      fail(f'D1: the sharded group step differs from vec_step_group at '
+           f'group {g}')
+  if int(vs.pending.sum()) == 0 or int(vs.episode.sum()) <= N_ENVS:
+    fail('D1: no reset pass overflowed its budget')
+  hp = vs.env.player.inventory[:, 0]
+  total = mesh_lib.psum_stats({'health': hp, 'ranks': 1}, mesh)
+  if not torch.equal(total['health'], hp) or int(total['ranks']) != 1:
+    fail(f'D1: psum_stats through NCCL gave {total}')
+  del want, got, vs0, vs, va, vb, oa, ob, outs
+  vcfg = dataclasses.replace(ct.EnvConfig(), length=D_LENGTH)
+  v_acts = [ct.prng.randint(ct.prng.fold_in(ct.prng.key(D_SEED + 1, dev), t),
+                            0, 17, (N_ENVS,)) for t in range(D_VECENV_TICKS)]
+  plain_env = ct.VecEnv(N_ENVS, vcfg, seed=D_SEED, device=dev)
+  want = [plain_env.reset()] + [plain_env.step(a) for a in v_acts]
+  sharded_env = ct.VecEnv(N_ENVS, vcfg, seed=D_SEED, device=dev,
+                          sharding=mesh)
+  got = [sharded_env.reset()]
+  zero_counts()                 # count the sharded steps' launches only
+  got += [sharded_env.step(a) for a in v_acts]
+  torch.cuda.synchronize()
+  d1_env_counts = read_counts('D1 sharded VecEnv', (
+      'tick', 'balance', 'noise2', 'render_win79', 'daylight'))
+  for t, (a, b) in enumerate(zip(got, want)):
+    pairs = zip(a, b) if isinstance(a, tuple) else [(a, b)]
+    if any(max_err(x, y, f'D1 VecEnv tick {t}') for x, y in pairs):
+      fail(f'D1: the sharded VecEnv differs from VecEnv at tick {t}')
+  if int(sharded_env.state.episode.sum()) <= N_ENVS:
+    fail('D1: no VecEnv episode reset')
+  d1_pending = int(sharded_env.state.pending.sum())
+  del plain_env, sharded_env, want, got
+  dist.barrier()
+  dist.destroy_process_group()
+  d1_s = time.perf_counter() - d_start
+  print(f'D1 one NCCL rank on {card}: sharded group step, {N_ENVS} envs x '
+        f'{D_GROUPS} groups == vec_step_group (launches {d1_group_counts}); '
+        f'psum_stats through NCCL; sharded VecEnv x {D_VECENV_TICKS} ticks == '
+        f'VecEnv, obs, reward, done, info ({d1_pending} envs pending at the '
+        f'end; launches {d1_env_counts}); {d1_s:.1f} s', flush=True)
+  torch.cuda.empty_cache()
+
+  def run_ranks(what, argv_of_rank, world=2):
+    """Start ``world`` ranks, each a subprocess, and wait for them (with a
+    timeout); a rank that fails or times out fails the phase."""
+    procs = [subprocess.Popen([sys.executable] + argv_of_rank(r),
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, cwd=root)
+             for r in range(world)]
+    outs = []
+    try:
+      for p in procs:
+        outs.append(p.communicate(timeout=RANK_TIMEOUT)[0])
+    except subprocess.TimeoutExpired:
+      fail(f'{what}: a rank took more than {RANK_TIMEOUT} s')
+    finally:
+      for p in procs:
+        if p.poll() is None:
+          p.kill()
+          p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+      if p.returncode != 0:
+        fail(f'{what}: rank {r} exited with {p.returncode}:\n{out[-3000:]}')
+    return outs
+
+  def rank_results(outs):
+    return [json.loads(next(line[len('RESULT '):]
+                            for line in out.splitlines()
+                            if line.startswith('RESULT ')))
+            for out in outs]
+
+  def need_launches(what, counts, needed):
+    for name in needed:
+      if not counts.get(name):
+        fail(f'kernel {name} was not launched on {what}')
+
+  # D2: two gloo ranks on the one card, 2048 envs each, per-rank budgets
+  # that overflow; the gathered leaves against vec_step_group on each half.
+  t0 = time.perf_counter()
+  port = free_port()
+  d2 = rank_results(run_ranks('D2', lambda r: [
+      str(Path(__file__).resolve()), '--rank', 'group', str(r), '2',
+      str(port)]))
+  for r, res in enumerate(d2):
+    need_launches(f'D2 rank {r}', res['launches'],
+                  ('group_tick', 'balance', 'noise2'))
+  if d2[0]['diffs']:
+    fail(f'D2: the two ranks differ from vec_step_group on each half: '
+         f'{d2[0]["diffs"][:10]}')
+  if not all(res['pending'] for res in d2):
+    fail(f'D2: a rank\'s reset budget did not overflow: {d2}')
+  d2_s = time.perf_counter() - t0
+  print(f'D2 two gloo ranks on {card}: 4096 envs x {D_GROUPS} groups, '
+        f'per-rank budgets overflowed ({[res["pending"] for res in d2]} '
+        f'pending), gathered leaves == vec_step_group on each half '
+        f'({d2[0]["episodes"]} episodes begun); launches '
+        f'{[res["launches"] for res in d2]}; {d2_s:.1f} s', flush=True)
+
+  # D3: the config-4 runner at 65,536 envs, one NCCL rank in this process,
+  # then two gloo ranks.
+  t0 = time.perf_counter()
+  demo = runpy.run_path(str(root / 'tools' / 'demo_64k_cuda.py'),
+                        run_name='demo_64k_cuda')
+  demo_args = ['--num_envs', str(DEMO_ENVS), '--steps', str(DEMO_STEPS)]
+  # Each record holds the launches of its timed loop (the tool sets the
+  # counts to 0 after its reset and warm-up).
+  demo_one = demo['main'](demo_args + [
+      '--coordinator', f'127.0.0.1:{free_port()}', '--num_processes', '1',
+      '--process_id', '0', '--backend', 'nccl'])[0]
+  d3_counts = demo_one['launches']
+  del demo
+  torch.cuda.empty_cache()
+  port = free_port()
+  outs = run_ranks('D3', lambda r: [
+      str(root / 'tools' / 'demo_64k_cuda.py')] + demo_args + [
+          '--coordinator', f'127.0.0.1:{port}', '--num_processes', '2',
+          '--process_id', str(r), '--backend', 'gloo'])
+  demo_two = [json.loads([line for line in out.splitlines()
+                          if line.startswith('{')][-1]) for out in outs]
+  for want_ranks, recs in ((1, [demo_one]), (2, demo_two)):
+    for rec in recs:
+      if (rec['processes'] != want_ranks or rec['devices'] != want_ranks
+          or rec['num_envs'] != DEMO_ENVS or rec['steps'] != DEMO_STEPS
+          or not rec['value'] > 0):
+        fail(f'D3: record {rec}')
+  need_launches('D3 one NCCL rank', d3_counts,
+                ('group_tick', 'balance', 'noise2'))
+  for r, rec in enumerate(demo_two):
+    need_launches(f'D3 rank {r}', rec['launches'],
+                  ('group_tick', 'balance', 'noise2'))
+    print(f'D3 demo_64k_cuda.py, two gloo ranks on {card}, rank {r}: '
+          f'{json.dumps(rec)}', flush=True)
+  d3_s = time.perf_counter() - t0
+  print(f'D3 demo_64k_cuda.py at {DEMO_ENVS} envs on {card}: one NCCL rank '
+        f'{demo_one["value"]:,} env-steps/s (launches {d3_counts}), two gloo '
+        f'ranks sharing the card {demo_two[0]["value"]:,} env-steps/s '
+        f'(printed, not compared); {d3_s:.1f} s', flush=True)
+
+  # D4: make_sharded_train on two gloo ranks at the training path's sizes.
+  t0 = time.perf_counter()
+  port = free_port()
+  d4 = rank_results(run_ranks('D4', lambda r: [
+      str(Path(__file__).resolve()), '--rank', 'train', str(r), '2',
+      str(port)]))
+  for r, res in enumerate(d4):
+    need_launches(f'D4 rank {r}', res['launches'], (
+        'tick', 'balance', 'noise2', 'render_win79', 'daylight'))
+    if res['unchanged'] or res['update'] != 2 \
+        or res['env_steps'] != 2 * PPO_ENVS * PPO_ROLLOUT \
+        or res['local_envs'] != PPO_ENVS // 2:
+      fail(f'D4 rank {r}: unchanged layers {res["unchanged"]}, update '
+           f'{res["update"]}, env_steps {res["env_steps"]}')
+  for u in range(2):
+    a, b = d4[0]['updates'][u], d4[1]['updates'][u]
+    if a['params'] != b['params']:
+      fail(f'D4: the ranks\' parameters differ after update {u + 1}')
+    if a['metrics'] != b['metrics'] or not all(
+        math.isfinite(v) for v in a['metrics'].values()):
+      fail(f'D4: metrics after update {u + 1}: {a["metrics"]} vs '
+           f'{b["metrics"]}')
+  small = d4[0]['small']
+  if small['diffs'] or small['episodes_done'] != small['episodes_done_one']:
+    fail(f'D4: the two-rank rollout of {D_SMALL_ENVS} envs differs from the '
+         f'one-process PPO\'s: {small}')
+  # The rate of the second update (the first warms cuDNN and the
+  # allocator), on the slower rank's clock.
+  second = [res['updates'][1] for res in d4]
+  d4_sps = PPO_ENVS * PPO_ROLLOUT / (max(u['ms'] for u in second) / 1e3)
+  d4_s = time.perf_counter() - t0
+  split = [[f'{u["ms"]:.1f} (rollout {u["rollout_ms"]:.1f}, learn '
+            f'{u["learn_ms"]:.1f}, of it {u["grad_sums"]} gradient '
+            f'all-reduces {u["grad_sum_ms"]:.1f})' for u in res['updates']]
+           for res in d4]
+  print(f'D4 make_sharded_train, two gloo ranks on {card}: {PPO_ENVS} envs '
+        f'x {PPO_ROLLOUT} ticks, {PPO_EPOCHS} epochs x {PPO_MINIBATCHES} '
+        f'minibatches, update ms by rank {split}; the second update '
+        f'{d4_sps:,.0f} env-steps/s (ranks sharing the card; one process, '
+        f'phase 3d: {ppo_sps:,.0f}); parameters equal across ranks after '
+        f'each update, metrics {d4[0]["updates"][-1]["metrics"]}; '
+        f'{D_SMALL_ENVS} envs x {D_SMALL_TICKS} ticks deterministic: rollout '
+        f'== one-process PPO ({small["episodes_done"]} episodes); launches '
+        f'{[res["launches"] for res in d4]}; {d4_s:.1f} s', flush=True)
+  print(json.dumps({'multi_device': {
+      'd1': {'group_launches': d1_group_counts, 'vecenv_launches':
+             d1_env_counts, 'seconds': d1_s},
+      'd2': {'ranks': d2, 'seconds': d2_s},
+      'd3': {'one_nccl_rank': demo_one, 'one_rank_launches': d3_counts,
+             'two_gloo_ranks': demo_two, 'seconds': d3_s},
+      'd4': {'env_steps_per_s': d4_sps, 'ranks': d4, 'seconds': d4_s},
+      'seconds': time.perf_counter() - d_start}}), flush=True)
+
   paths = (state_counts, pixel_counts, tick_counts, ppo_counts)
   launches = {
       'group_tick': state_counts['group_tick'],
@@ -1540,4 +1989,7 @@ def main():
 
 
 if __name__ == '__main__':
-  main()
+  if sys.argv[1:2] == ['--rank']:
+    rank_main(sys.argv[2:])
+  else:
+    main()

@@ -17,11 +17,14 @@ crafter_tpu_torch.run_train``; and the reference's single-env surfaces:
 recorders; the seed-exact oracle ``ParityEnv`` (numpy on the host,
 ``parity.py``); the 'compat' worldgen mode (``EnvConfig(noise_mode=
 'compat')``: the permutation-table OpenSimplex of ``ops/noise.py``); and
-the CLIs ``run_random``, ``run_terrain``, ``run_gui`` and ``plots``.
+the CLIs ``run_random``, ``run_terrain``, ``run_gui`` and ``plots``; and
+data parallelism over processes (``parallel``: ``distributed_init``,
+``dp_mesh``, ``make_sharded_group_step``, ``psum_stats``; the sharded
+``VecEnv(sharding=...)`` and ``make_sharded_train``).
 Entry points run on ``cuda`` unless given ``device='cpu'``.
 """
 
-from . import prng, render, rules
+from . import parallel, prng, render, rules
 from .config import DEFAULT_CONFIG, EnvConfig
 from .convert import state_from_numpy, to_numpy
 from .env import (CrafterEnv, Env, GymnasiumEnv, VecEnv, VecState,
@@ -29,7 +32,7 @@ from .env import (CrafterEnv, Env, GymnasiumEnv, VecEnv, VecState,
                   vec_step, vec_step_group, vec_step_group_obs, vec_step_k)
 from .models import CnnPolicy, PolicyOutput
 from .parity import ParityEnv
-from .ppo import PPO, PPOConfig, PPOState, Transition
+from .ppo import PPO, PPOConfig, PPOState, Transition, make_sharded_train
 from .recorder import (EpisodeRecorder, Recorder, StatsRecorder,
                        VecStatsRecorder, VideoRecorder)
 from .render import (Atlas, bake_atlas, frame_image, noise_seed, pack_cells,
@@ -50,8 +53,9 @@ __all__ = [
     'StatsRecorder', 'StepOut', 'Transition', 'VecEnv', 'VecState',
     'VecStatsRecorder', 'VideoRecorder', 'bake_atlas', 'balance',
     'balance_plain', 'daylight', 'finish_tick', 'frame_image',
-    'generate_world', 'group_tick', 'home_keys', 'noise_seed', 'pack_cells',
-    'prng', 'register_gym_envs', 'render', 'render_fields', 'render_frames',
+    'generate_world', 'group_tick', 'home_keys', 'make_sharded_train',
+    'noise_seed', 'pack_cells', 'parallel', 'prng', 'register_gym_envs',
+    'render', 'render_fields', 'render_frames',
     'render_px_fields', 'render_win79', 'render_win79_plain', 'rules',
     'semantic_view', 'state_from_numpy', 'step_batch', 'step_group_plain',
     'tick', 'tick_plain', 'to_numpy', 'vec_reset', 'vec_reset_chunked',

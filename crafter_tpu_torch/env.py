@@ -11,6 +11,12 @@ functional core over batched states), the reference's single-env Gym API
 ``VecEnv``.  For the same keys and actions it produces the JAX package's
 states, results and frames leaf for leaf.
 
+``vec_step`` and ``VecEnv`` also run on a mesh of ranks
+(:mod:`crafter_tpu_torch.parallel`), each rank holding its rows of the
+batch: the reset pass then keeps the one-process rule, the first
+``reset_batch`` finished envs by global index, as the JAX package's
+GSPMD-sharded ``vec_step`` does.
+
 ``cfg.engine`` picks the backend of the tick, group tick, balance and
 render ('auto': the CUDA kernels for CUDA tensors, 'plain': the PyTorch
 twins); ``cfg.noise_mode`` the worldgen noise backend likewise.
@@ -24,6 +30,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import prng, rules
 from . import render as render_lib
@@ -346,7 +353,7 @@ def vec_step_group_obs(vs: VecState, actions: torch.Tensor, cfg: EnvConfig,
 
 def vec_step(vs: VecState, actions: torch.Tensor, cfg: EnvConfig,
              reset_batch: int, reset_every: int = 1,
-             balance: Optional[bool] = None):
+             balance: Optional[bool] = None, mesh=None):
   """One batched tick and a partial-batch auto-reset pass.
 
   Returns ``(vs, out, stepped_env)``: finished envs have been replaced in
@@ -356,7 +363,8 @@ def vec_step(vs: VecState, actions: torch.Tensor, cfg: EnvConfig,
   reset pass on every that-many-th tick only.  ``balance``: None balances
   on the global cadence (every ``cfg.balance_every``-th tick), True / False
   force it for this tick.  Both cadences are branches on the host's tick
-  count.
+  count.  ``mesh``: ``vs`` holds this rank's rows of the batch, and the
+  reset budget is global (see :func:`_reset_pass`).
   """
   tick = vs.tick + 1
   if balance is None:
@@ -372,7 +380,7 @@ def vec_step(vs: VecState, actions: torch.Tensor, cfg: EnvConfig,
     episode, pending = vs.episode, done   # skipped: everyone stays pending
   else:
     env, episode, pending = _reset_pass(env, done, vs.episode, vs.home_key,
-                                        cfg, reset_batch)
+                                        cfg, reset_batch, mesh)
   vs = VecState(env=env, episode=episode, home_key=vs.home_key, tick=tick,
                 pending=pending)
   return vs, out, stepped_env
@@ -417,21 +425,39 @@ def _group_finish(vs: VecState, env: State, raw: step_lib.StepOut,
   return vs, outs
 
 
+def _finished_below(count: torch.Tensor, mesh):
+  """The finished envs on the ranks below this one, given this rank's
+  ``count``: one SUM all-reduce of a ``(W,)`` int32 vector, with no host
+  synchronisation on NCCL.  0 without a process group."""
+  if mesh is None or mesh.group is None:
+    return 0
+  counts = torch.zeros((mesh.size,), dtype=torch.int32, device=count.device)
+  counts[mesh.rank] = count
+  dist.all_reduce(counts, group=mesh.group)
+  return counts[:mesh.rank].sum()
+
+
 def _reset_pass(env: State, done: torch.Tensor, episode: torch.Tensor,
-                home_key: torch.Tensor, cfg: EnvConfig, reset_batch: int):
+                home_key: torch.Tensor, cfg: EnvConfig, reset_batch: int,
+                mesh=None):
   """Replace up to ``reset_batch`` finished envs with fresh worlds.
 
   The first ``reset_batch`` finished envs by index reset (overflow waits
-  for the next pass).  Worldgen always runs ``reset_batch`` worlds; rows
-  with no env behind them generate a throwaway world from zero key data,
-  as the JAX package does.  Fresh rows reach their envs by an index gather
-  and a select, with no host synchronisation.
+  for the next pass).  With a ``mesh`` the batch is this rank's rows and
+  the index is global: one all-reduce of the ranks' finished counts tells
+  the rank how many finished envs lie below its rows.  Worldgen runs
+  ``min(reset_batch, n)`` worlds for the ``n`` rows at hand; rows with no
+  env behind them generate a throwaway world from zero key data, as the
+  JAX package does.  Each world derives from its env's home key and
+  episode, so the worlds do not depend on the split into ranks.  Fresh
+  rows reach their envs by an index gather and a select, with no host
+  synchronisation.
   """
-  r = reset_batch
   n = done.shape[0]
   dev = done.device
   rank = torch.cumsum(done.to(torch.int32), 0) - 1
-  selected = done & (rank < r)
+  selected = done & (rank < reset_batch - _finished_below(rank[-1] + 1, mesh))
+  r = min(reset_batch, n)
   ep_next = episode + 1
 
   # Row j of the reset batch is the env of rank j (index n: no env).
@@ -488,17 +514,30 @@ class VecEnv:
   ``step(actions)`` returns the observation after the auto-reset, so a
   finished env hands back the first frame of its next episode; the terminal
   step's reward, done and info describe the episode that just ended.
+
+  ``sharding``: a :class:`crafter_tpu_torch.parallel.Mesh`.  The instance
+  then holds this rank's rows of the ``num_envs`` envs on the mesh's device
+  (env ``i`` gets the same world whatever the rank count), ``step`` takes
+  and returns those rows, and the reset budget ``reset_batch`` is global.
   """
 
   def __init__(self, num_envs: int, cfg: EnvConfig = DEFAULT_CONFIG,
                seed: int = 0, reset_batch: Optional[int] = None,
-               device='cuda'):
+               device='cuda', sharding=None):
     self.num_envs = num_envs
     self.cfg = cfg
+    self._mesh = sharding
+    if sharding is not None:
+      if torch.device(device).type != sharding.device.type:
+        raise ValueError(f'device {device} is not the mesh\'s '
+                         f'{sharding.device}')
+      device = sharding.device
     self.device = torch.device(device)
     self.core = CrafterEnv(cfg, self.device)
     self.reset_batch = min(num_envs, reset_batch or max(32, num_envs // 128))
     self._home = home_keys(seed, num_envs, self.device)
+    if sharding is not None:
+      self._home = self._home[sharding.rows(num_envs)]
     self.state: Optional[VecState] = None
     self.single_observation_space = BoxSpace(
         0, 255, tuple(cfg.size) + (3,), np.uint8)
@@ -514,7 +553,7 @@ class VecEnv:
   def step(self, actions):
     actions = torch.as_tensor(actions, dtype=torch.int32, device=self.device)
     self.state, out, stepped = vec_step(self.state, actions, self.cfg,
-                                        self.reset_batch)
+                                        self.reset_batch, mesh=self._mesh)
     # info describes the terminal step (the state before the reset), obs
     # the state after it.
     info = self.core.info(stepped, out)

@@ -16,6 +16,13 @@ key is a threefry key (``prng.py``), split exactly where the JAX package
 splits it, so the minibatch partitions are the JAX package's for the same
 key.  The policy and the optimizer are updated in place: a ``PPOState``
 returned by ``train_step`` shares them with the state passed in.
+
+``make_sharded_train`` runs the same update on a mesh of ranks
+(:mod:`crafter_tpu_torch.parallel`), each holding its rows of the env
+batch.  Where XLA derives the collectives from the global-mean loss, the
+learner makes them explicit: the advantage statistics and the loss terms
+are taken over the global minibatch, and the gradients are summed over the
+ranks before the clip, so every rank takes the same Adam step.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from . import prng, rules
 from .config import DEFAULT_CONFIG, EnvConfig
 from .env import CrafterEnv, VecState, home_keys, vec_reset_chunked, vec_step
 from .models import CnnPolicy
+from .parallel.mesh import Mesh, psum_stats, replicate, shard_batch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +60,7 @@ class PPOConfig:
   # shuffle all samples.  True: permute the T rollout rows and take T/M rows,
   # every env, per minibatch (the scheme for an env batch sharded over
   # devices, where it keeps every gather local to a shard).
+  # make_sharded_train resolves None to True on more than one rank.
   time_minibatch: Optional[bool] = None
   # Global-mode shuffle cadence.  'update' (default): one whole-batch gather
   # per update; the minibatch partition holds across the epochs and only the
@@ -91,14 +100,22 @@ class Transition:
 
 
 class PPO:
-  """``init`` and ``train_step`` for an env and a PPO configuration."""
+  """``init`` and ``train_step`` for an env and a PPO configuration.
+
+  ``mesh`` (see :func:`make_sharded_train`): the state holds this rank's
+  rows of the ``cfg.num_envs`` envs, and the update is the one-process
+  update of the whole batch.  Without one, a mesh of one rank: the whole
+  batch, and no collective runs.
+  """
 
   def __init__(self, env_cfg: EnvConfig = DEFAULT_CONFIG,
-               cfg: PPOConfig = PPOConfig(), device='cuda'):
+               cfg: PPOConfig = PPOConfig(), device='cuda',
+               mesh: Optional[Mesh] = None):
     self.env_cfg = env_cfg
     self.cfg = cfg
     self.device = torch.device(device)
     self.core = CrafterEnv(env_cfg, self.device)
+    self.mesh = mesh or Mesh(None, 0, 1, self.device)
 
   # -- initialization ------------------------------------------------------
 
@@ -112,12 +129,18 @@ class PPO:
     policy = CnnPolicy(n_actions=rules.N_ACTIONS,
                        input_hw=(self.env_cfg.size[1], self.env_cfg.size[0]),
                        generator=gen, device=self.device)
+    # One generator gives every rank the same policy; the broadcast makes
+    # rank 0's the one.
+    with torch.no_grad():
+      for p, q in zip(policy.parameters(),
+                      replicate(list(policy.parameters()), self.mesh)):
+        p.copy_(q)
+    home = home_keys(self.cfg.seed, self.cfg.num_envs,
+                     self.device)[self.mesh.rows(self.cfg.num_envs)]
     opt = torch.optim.Adam(policy.parameters(), lr=self.cfg.lr, eps=1e-5)
-    vec = vec_reset_chunked(
-        home_keys(self.cfg.seed, self.cfg.num_envs, self.device),
-        self.env_cfg)
+    vec = vec_reset_chunked(home, self.env_cfg)
     obs = self.core.observe_batch(vec.env)
-    n = self.cfg.num_envs
+    n = home.shape[0]
     return PPOState(
         params=policy, opt_state=opt, vec=vec, obs=obs, key=k_run,
         update=0, env_steps=0,
@@ -131,7 +154,7 @@ class PPO:
                                             torch.Tensor]:
     cfg, env_cfg = self.cfg, self.env_cfg
     k = env_cfg.balance_every
-    t_len, n = cfg.rollout_len, cfg.num_envs
+    t_len, n = cfg.rollout_len, ts.obs.shape[0]
     # When the rollout divides into whole balance-cadence groups, step the
     # env on the group cadence: balance on each group's last tick and one
     # reset pass per K ticks, sized K * reset_batch.  Same semantics as the
@@ -151,6 +174,8 @@ class PPO:
     vec, obs, key = ts.vec, ts.obs, ts.key
     policy = ts.params
     rows = torch.arange(n, device=dev)
+    # This rank's rows of the global draw, as (start, total).
+    mine = (self.mesh.rows(cfg.num_envs).start, cfg.num_envs)
     for t in range(t_len):
       # Envs latched `pending` at tick start are finished episodes idling
       # for a reset slot (up to K-1 ticks on the group cadence): their
@@ -160,15 +185,16 @@ class PPO:
       stale = vec.pending
       key, k_act = prng.split(key, 2)
       out = policy(obs)
-      action = prng.categorical(k_act, out.logits)
+      action = prng.categorical(k_act, out.logits, mine)
       logp = torch.log_softmax(out.logits, -1)[rows, action]
       if grouped:
         vec, env_out, stepped = vec_step(
             vec, action.to(torch.int32), env_cfg, k * cfg.reset_batch,
-            reset_every=k, balance=(t % k == k - 1))
+            reset_every=k, balance=(t % k == k - 1), mesh=self.mesh)
       else:
         vec, env_out, stepped = vec_step(vec, action.to(torch.int32),
-                                         env_cfg, cfg.reset_batch)
+                                         env_cfg, cfg.reset_batch,
+                                         mesh=self.mesh)
       traj.obs[t] = obs
       traj.action[t] = action
       traj.logp[t] = logp
@@ -184,7 +210,7 @@ class PPO:
       obs = self.core.observe_batch(vec.env)
     last_value = policy(obs).value
     ts = dataclasses.replace(ts, vec=vec, obs=obs, key=key,
-                             env_steps=ts.env_steps + t_len * n)
+                             env_steps=ts.env_steps + t_len * cfg.num_envs)
     return ts, traj, last_value
 
   # -- GAE -----------------------------------------------------------------
@@ -213,14 +239,20 @@ class PPO:
     logp_all = torch.log_softmax(out.logits, -1)
     logp = logp_all[torch.arange(action.shape[0], device=action.device),
                     action]
-    # The population deviation, as jnp's std.
-    adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+    # The rank's share of the global-minibatch mean (every rank holds as
+    # many samples), and the global mean and population deviation of the
+    # advantages, two-pass as jnp's std.
+    count = adv.numel() * self.mesh.size
+    avg = lambda x: x.sum() / count
+    mu = psum_stats(adv.sum(), self.mesh) / count
+    var = psum_stats(torch.square(adv - mu).sum(), self.mesh) / count
+    adv = (adv - mu) / (torch.sqrt(var) + 1e-8)
     ratio = torch.exp(logp - logp_old)
-    pg = -torch.minimum(
+    pg = -avg(torch.minimum(
         ratio * adv,
-        torch.clamp(ratio, 1 - cfg.clip, 1 + cfg.clip) * adv).mean()
-    v_loss = 0.5 * torch.square(out.value - ret).mean()
-    entropy = -(torch.exp(logp_all) * logp_all).sum(-1).mean()
+        torch.clamp(ratio, 1 - cfg.clip, 1 + cfg.clip) * adv))
+    v_loss = 0.5 * avg(torch.square(out.value - ret))
+    entropy = -avg((torch.exp(logp_all) * logp_all).sum(-1))
     loss = pg + cfg.vf_coef * v_loss - cfg.ent_coef * entropy
     return loss, dict(pg_loss=pg, v_loss=v_loss, entropy=entropy)
 
@@ -235,12 +267,25 @@ class PPO:
     for g in grads:
       g.copy_(torch.where(keep, g, g / norm * self.cfg.max_grad_norm))
 
+  def _sum_grads(self, policy: CnnPolicy) -> None:
+    """Each gradient summed over the ranks (one all-reduce of the flat
+    gradients): the gradient of the global-mean loss, the same on every
+    rank.  One rank holds it already."""
+    if self.mesh.size == 1:
+      return
+    grads = [p.grad for p in policy.parameters()]
+    flat = psum_stats(torch.cat([g.reshape(-1) for g in grads]), self.mesh)
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+      g.copy_(part.view_as(g))
+
   def _sgd_step(self, ts: PPOState, mb):
     ts.opt_state.zero_grad(set_to_none=True)
     loss, aux = self._loss(ts.params, mb)
     loss.backward()
+    self._sum_grads(ts.params)
     self._clip_grads(ts.params)
     ts.opt_state.step()
+    # This rank's shares of the global means.
     return dict(loss=loss.detach(),
                 **{name: v.detach() for name, v in aux.items()})
 
@@ -251,6 +296,10 @@ class PPO:
       if cfg.rollout_len % cfg.minibatches:
         raise ValueError('rollout_len must divide into minibatches '
                          '(time-axis minibatching)')
+    elif self.mesh.size > 1:
+      raise ValueError('on more than one rank the minibatches must be '
+                       'time-axis (time_minibatch=True): the global shuffle '
+                       'mixes the ranks\' samples')
     elif (cfg.rollout_len * cfg.num_envs) % cfg.minibatches:
       raise ValueError('rollout size must divide into minibatches')
     ts, traj, last_value = self._rollout(ts)
@@ -314,9 +363,14 @@ class PPO:
         sums = metrics if sums is None else {
             name: sums[name] + v for name, v in metrics.items()}
         steps += 1
-    metrics = {name: v / steps for name, v in sums.items()}
-    metrics['reward_per_step'] = traj.reward.mean()
-    metrics['episodes_done'] = traj.ended.sum()
+    # The ranks' shares summed once an update (the mean over minibatches
+    # is linear): one all-reduce of the float metrics, one of the count.
+    names = list(sums) + ['reward_per_step']
+    total = psum_stats(torch.stack(
+        [sums[name] / steps for name in sums]
+        + [traj.reward.sum() / (cfg.rollout_len * cfg.num_envs)]), self.mesh)
+    metrics = dict(zip(names, total))
+    metrics['episodes_done'] = psum_stats(traj.ended.sum(), self.mesh)
     ts = dataclasses.replace(ts, key=key, update=ts.update + 1)
     ts, stats = self._episode_stats(ts, traj)
     return ts, metrics, stats
@@ -375,3 +429,33 @@ class PPO:
     """Like :meth:`train_step` but also returns the update's packed
     finished-episode records for the ``VecStatsRecorder``."""
     return self._update(ts)
+
+
+def make_sharded_train(env_cfg: EnvConfig, cfg: PPOConfig, mesh: Mesh,
+                       device='cuda'):
+  """Training with the env batch sharded over the ranks of ``mesh``.
+
+  Returns ``(ppo, init, train_step, shard_state)``, as the JAX package's
+  ``make_sharded_train``.  The policy and the Adam state are replicated
+  (one generator, then a broadcast from rank 0); the env state, frames and
+  episode accumulators are this rank's rows of the ``cfg.num_envs`` envs.
+  The rollout samples each rank's actions from its rows of the global draw
+  and resets with the global budget, so it is the one-process rollout's;
+  the learner minimises the global-mean loss and every rank takes the same
+  step.  ``time_minibatch=None`` resolves to time-axis minibatches on more
+  than one rank.  ``shard_state(ts)`` keeps this rank's rows of a
+  one-process ``PPOState`` (a restored checkpoint, say).  ``device`` must
+  name the mesh's device type.  As in the JAX package, the sharded surface
+  is ``train_step``: ``train_step_with_stats`` would pack each rank's own
+  episodes.
+  """
+  if torch.device(device).type != mesh.device.type:
+    raise ValueError(f'device {device} is not the mesh\'s {mesh.device}')
+  if cfg.time_minibatch is None:
+    cfg = dataclasses.replace(cfg, time_minibatch=mesh.size > 1)
+  ppo = PPO(env_cfg, cfg, device=mesh.device, mesh=mesh)
+
+  def shard_state(ts: PPOState) -> PPOState:
+    return shard_batch(ts, mesh, cfg.num_envs)
+
+  return ppo, ppo.init, ppo.train_step, shard_state

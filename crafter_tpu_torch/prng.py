@@ -13,6 +13,13 @@ whatever device the keys live on:
 * ``uniform`` / ``randint`` / ``permutation`` / ``categorical`` as
   ``jax.random`` builds them from those bits.
 
+``random_bits``, ``uniform``, ``randint`` and ``categorical`` also draw a
+shard of a larger draw: with ``rows=(start, total)`` the result is rows
+``[start, start + shape[axis])`` of the draw of the global shape whose
+``axis`` is ``total`` long, bit for bit.  That is what a sharded draw gives
+each shard under ``jax_threefry_partitionable=True``: the counters are flat
+indices into the global shape.
+
 A key is an int64 tensor ``(..., 2)`` holding the two uint32 words; int64
 keeps every intermediate exact without unsigned tensor support, and all
 arithmetic is masked back to 32 bits.
@@ -69,36 +76,56 @@ def split(keys: torch.Tensor, num: int) -> torch.Tensor:
   return torch.stack([b0, b1], -1)
 
 
-def random_bits(keys: torch.Tensor, shape) -> torch.Tensor:
+def _counters(shape, rows, axis, device) -> torch.Tensor:
+  """The flat threefry counters of a draw of ``shape``: ``0..size-1``, or
+  with ``rows=(start, total)`` the global flat indices of rows
+  ``[start, start + shape[axis])`` of a draw whose ``axis`` is ``total``
+  long."""
+  shape = tuple(int(s) for s in shape)
+  if rows is None:
+    return torch.arange(math.prod(shape), dtype=torch.int64, device=device)
+  start, total = (int(v) for v in rows)
+  if not 0 <= start <= total - shape[axis]:
+    raise ValueError(f'rows {rows} do not hold {shape[axis]} rows')
+  inner = math.prod(shape[axis + 1:])
+  ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)
+  return (ar(math.prod(shape[:axis]))[:, None, None] * (total * inner)
+          + (ar(shape[axis]) + start)[None, :, None] * inner
+          + ar(inner)[None, None, :]).reshape(-1)
+
+
+def random_bits(keys: torch.Tensor, shape, rows=None,
+                axis: int = 0) -> torch.Tensor:
   """32 random bits per element, (..., *shape) int64, as
-  ``jax.random.bits(k, shape, uint32)``."""
-  size = 1
-  for s in shape:
-    size *= int(s)
-  i = torch.arange(size, dtype=torch.int64, device=keys.device)
+  ``jax.random.bits(k, shape, uint32)``; ``rows=(start, total)`` draws
+  rows ``[start, start + shape[axis])`` of a draw whose ``axis`` is
+  ``total`` long."""
+  i = _counters(shape, rows, axis, keys.device)
   b0, b1 = threefry2x32(keys[..., None, 0], keys[..., None, 1],
                         torch.zeros_like(i), i)
   return (b0 ^ b1).reshape(keys.shape[:-1] + tuple(shape))
 
 
-def uniform(keys: torch.Tensor, shape) -> torch.Tensor:
-  """``jax.random.uniform(k, shape)`` (float32 in [0, 1)) per key."""
+def uniform(keys: torch.Tensor, shape, rows=None,
+            axis: int = 0) -> torch.Tensor:
+  """``jax.random.uniform(k, shape)`` (float32 in [0, 1)) per key; ``rows``
+  and ``axis`` as for :func:`random_bits`."""
   # 23 random mantissa bits under the exponent of 1.0, minus 1.0
   # (random.py:_uniform); the word stays below 2**31, so int32 holds it.
-  bits = (random_bits(keys, shape) >> 9) | 0x3F800000
+  bits = (random_bits(keys, shape, rows, axis) >> 9) | 0x3F800000
   return bits.to(torch.int32).view(torch.float32) - 1.0
 
 
 def randint(keys: torch.Tensor, minval: int, maxval: int,
-            shape=()) -> torch.Tensor:
+            shape=(), rows=None, axis: int = 0) -> torch.Tensor:
   """``jax.random.randint(k, shape, minval, maxval)`` (int32) per key:
-  (..., *shape).
+  (..., *shape); ``rows`` and ``axis`` as for :func:`random_bits`.
 
   JAX splits the key in two, draws 32 bits from each and combines them
   modulo the span with uint32 wrapping (random.py:_randint)."""
   sub = split(keys, 2)
-  hi = random_bits(sub[..., 0, :], shape)
-  lo = random_bits(sub[..., 1, :], shape)
+  hi = random_bits(sub[..., 0, :], shape, rows, axis)
+  lo = random_bits(sub[..., 1, :], shape, rows, axis)
   span = (maxval - minval) & MASK32
   mult = (2 ** 16) % span
   mult = ((mult * mult) & MASK32) % span
@@ -123,15 +150,18 @@ def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
   return x
 
 
-def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+def categorical(key: torch.Tensor, logits: torch.Tensor,
+                rows=None) -> torch.Tensor:
   """``jax.random.categorical(key, logits)`` over the last axis for one key:
-  the argmax of the logits plus Gumbel noise ``-log(-log(u))``.
+  the argmax of the logits plus Gumbel noise ``-log(-log(u))``.  With
+  ``rows=(start, total)`` the logits are rows ``[start, start + n)`` of a
+  ``(total, A)`` batch, and the noise is theirs in the global draw.
 
   The uniform draw ``u`` is JAX's bit for bit (its ``uniform(minval=tiny)``
   only lifts an exact 0 to the smallest normal float); the two logarithms
   are this library's, so the result equals JAX's draw except where two
   perturbed logits lie within the logarithms' rounding of each other."""
-  u = uniform(key, tuple(logits.shape)).clamp_min(
+  u = uniform(key, tuple(logits.shape), rows).clamp_min(
       torch.finfo(torch.float32).tiny)
   gumbel = -torch.log(-torch.log(u))
   return torch.argmax(gumbel.to(logits.dtype) + logits, dim=-1)

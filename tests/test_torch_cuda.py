@@ -622,3 +622,37 @@ def test_train_step_on_card(dev):
   now = (step_cuda.tick.launches, ct.render_win79.launches,
          step_cuda.balance.launches, noise_cuda.noise2.launches)
   assert all(b > a for a, b in zip(launches, now)), (launches, now)
+
+
+def test_one_rank_nccl_sharded_group_step_equals_vec_step_group(dev):
+  """The multi-device group step on a real NCCL group of one rank: bitwise
+  the one-process group step, across episode ends and a reset budget that
+  overflows; ``psum_stats`` through NCCL is the identity on one rank."""
+  import socket
+  import torch.distributed as dist
+  from crafter_tpu_torch.parallel import mesh as mesh_lib
+  with socket.socket() as s:
+    s.bind(('127.0.0.1', 0))
+    port = s.getsockname()[1]
+  mesh_lib.distributed_init(f'127.0.0.1:{port}', 1, 0, backend='nccl')
+  try:
+    assert dist.get_backend() == 'nccl'
+    mesh = mesh_lib.dp_mesh()
+    cfg = ct.EnvConfig(length=25)
+    n = 96
+    step = mesh_lib.make_sharded_group_step(mesh, cfg, 8)
+    va = ct.vec_reset(ct.home_keys(9, n, dev), cfg)
+    vb = mesh_lib.shard_batch(va, mesh, n)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    for _ in range(3):
+      acts = torch.randint(0, 17, (10, n), generator=gen, device=dev)
+      va, oa = ct.vec_step_group(va, acts, cfg, 8)
+      vb, ob = step(vb, acts)
+      _assert_equal(va, vb)
+      _assert_equal(oa, ob)
+    assert int(va.episode.sum()) > n and int(va.pending.sum()) > 0
+    hp = vb.env.player.inventory[:, 0]
+    assert torch.equal(mesh_lib.psum_stats(hp, mesh), hp)
+  finally:
+    dist.destroy_process_group()

@@ -1,8 +1,10 @@
 """The port stands alone: ``crafter_tpu_torch``, ``chip_smoke.py``, the
 port's bench ``bench_cuda.py``, the GPU tools ``tools/bench_roll_cuda.py``,
-``tools/bench_paths_cuda.py`` and ``tools/bench_render_cuda.py``
-and ``tests/dense_states.py`` and ``tests/parity_digest.py`` (which
-``chip_smoke.py`` imports) import
+``tools/bench_paths_cuda.py`` and ``tools/bench_render_cuda.py``, the
+multi-process tools ``tools/demo_64k_cuda.py`` and
+``tools/dist_worker_cuda.py``, ``tests/sharding_ranks.py`` (the port's gloo
+ranks of the sharding tests) and ``tests/dense_states.py`` and
+``tests/parity_digest.py`` (which ``chip_smoke.py`` imports) import
 neither JAX (nor flax, optax, orbax or chex) nor the JAX package nor an
 image library (PIL, imageio: the card's
 machine has none), checked both in a fresh interpreter (``sys.modules``
@@ -30,6 +32,9 @@ SCRIPTS = [ROOT / 'chip_smoke.py', ROOT / 'bench_cuda.py',
            ROOT / 'tools' / 'bench_roll_cuda.py',
            ROOT / 'tools' / 'bench_paths_cuda.py',
            ROOT / 'tools' / 'bench_render_cuda.py',
+           ROOT / 'tools' / 'demo_64k_cuda.py',
+           ROOT / 'tools' / 'dist_worker_cuda.py',
+           ROOT / 'tests' / 'sharding_ranks.py',
            ROOT / 'tests' / 'dense_states.py',
            ROOT / 'tests' / 'parity_digest.py']
 LAZY = ('pygame', 'matplotlib')
@@ -87,7 +92,7 @@ def test_no_forbidden_modules_loaded():
   for name in ('step_cuda', 'render_cuda', 'ops.noise_cuda', 'ops.roll_cuda',
                'ppo', 'models.cnn', 'checkpoint', 'run_train', 'parity',
                'ops.noise_host', 'run_random', 'run_terrain', 'run_gui',
-               'plots'):
+               'plots', 'parallel', 'parallel.mesh'):
     assert f'crafter_tpu_torch.{name}' in loaded, name
 
 
