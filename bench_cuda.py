@@ -36,20 +36,12 @@ error.
 import argparse
 import json
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
 
 BASELINE = 1_000_000   # env-steps/s, bench.py's north-star target
 REPEATS = 3            # timed scans a configuration, as bench.py
-
-
-def _card() -> str:
-  out = subprocess.run(
-      ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
-      capture_output=True, text=True, check=True, timeout=60).stdout
-  return out.strip().splitlines()[0]
 
 
 def bench_engine(num_envs, scan_len, render, device):
@@ -125,12 +117,11 @@ def main(argv=None):
   args = ap.parse_args(argv)
   sys.path.insert(0, str(Path(__file__).resolve().parent))
   import torch
-  if args.device.startswith('cuda'):
-    if not torch.cuda.is_available():
-      raise SystemExit('bench_cuda: no CUDA device (torch.cuda.is_available() '
-                       'is false); pass --device cpu for the CPU smoke run')
+  from crafter_tpu_torch.utils import tool_device
+  dev, card = tool_device(args.device, 'bench_cuda')
+  if dev.type == 'cuda':
     where = {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
-             'card': _card()}
+             'card': card}
   else:
     where = {'platform': 'cpu', 'kind': 'cpu', 'card': None}
 

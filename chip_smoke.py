@@ -105,6 +105,19 @@ Run from the repository root on a machine with an NVIDIA H100:
    and a 64-env rollout of 8 ticks under deterministic algorithms equal to
    the one-process ``PPO``'s.  Rates of ranks sharing one card are printed,
    not compared.  Prints the phase's results as one JSON line.
+7. Drives the tools layer, each tool through its ``main`` as a user runs
+   it, each counting its own launches from 0 after its set-up: E1,
+   ``tools/random_baseline_cuda.py --steps 1000000 --envs 512`` (its score
+   beside RESULTS.md's TPU figure as context, the success rates, the rate;
+   tick, balance and noise2 launched), then its first two chunks on the
+   CPU through the plain path, whose ``stats.jsonl`` lines must equal the
+   card's first lines; E2, ``tools/score_run_cuda.py`` on E1's logdir, the
+   same score; E3, ``tools/bench_ppo_cuda.py --updates 2``; E4,
+   ``tools/ppo_budget_cuda.py --reps 1`` (the stage table; the env stages,
+   the rollout and the full update launch their kernels); E5,
+   ``tools/profile_summary_cuda.py --iters 20`` per tick, ``--group`` and
+   ``--render`` and ``tools/profile_learn_cuda.py --stage learn``, each
+   table with device ops and each path's kernels launched.
 
 Every kernel's time is taken with the wrapper (CUDA events) and on the
 device alone (``torch.profiler``); the balance also prints the host's
@@ -196,6 +209,10 @@ D_VECENV_TICKS = 30
 DEMO_ENVS, DEMO_STEPS = 65536, 100
 D_SMALL_ENVS, D_SMALL_TICKS = 64, 8
 RANK_TIMEOUT = 420          # seconds a subprocess rank may take
+# Phase 7: the random baseline's defaults; on the CPU the steps that make
+# its first two chunks of 64 ticks (target = steps + steps // 8).
+E1_STEPS, E1_ENVS = 1_000_000, 512
+E1_CPU_STEPS = 40_000
 
 
 def fail(msg):
@@ -221,27 +238,6 @@ def free_port():
   with socket.socket() as s:
     s.bind(('127.0.0.1', 0))
     return s.getsockname()[1]
-
-
-def counted_wrappers():
-  """The kernel wrappers of the sharded paths, by name."""
-  from crafter_tpu_torch import render_cuda, state, step_cuda
-  from crafter_tpu_torch.ops import noise_cuda
-  return (('group_tick', step_cuda.group_tick), ('tick', step_cuda.tick),
-          ('balance', step_cuda.balance), ('noise2', noise_cuda.noise2),
-          ('render_win79', render_cuda.render_win79),
-          ('daylight', state.daylight))
-
-
-def zero_launch_counts():
-  """Sets the launch counts of this process's wrappers to 0."""
-  for _, fn in counted_wrappers():
-    fn.launches = 0
-
-
-def launch_counts():
-  """The launches counted by the kernel wrappers of this process."""
-  return {name: fn.launches for name, fn in counted_wrappers()}
 
 
 def np_rows(tree, rows, axis=0):
@@ -279,19 +275,20 @@ def rank_group(ct, mesh):
   budget (ranks are independent, so the comparison is exact)."""
   import torch
   from crafter_tpu_torch.parallel import mesh as mesh_lib
+  from crafter_tpu_torch.utils import launches, zero_launches
   n, dev = 4096, mesh.device
   cfg = ct.EnvConfig(reward=False, length=D_LENGTH)
   k = cfg.balance_every
   rows = mesh.rows(n)
   vs = ct.vec_reset_chunked(ct.home_keys(D_SEED, n, dev)[rows], cfg)
   step = mesh_lib.make_sharded_group_step(mesh, cfg, RESET_BATCH)
-  zero_launch_counts()          # count the sharded groups' launches only
+  zero_launches()     # count the sharded groups' launches only
   outs = []
   for g in range(D_GROUPS):
     vs, out = step(vs, d_actions(ct.prng, g, k, n, dev, rows))
     outs.append(out)
   torch.cuda.synchronize()
-  res = dict(launches=launch_counts(), pending=int(vs.pending.sum()))
+  res = dict(launches=launches(), pending=int(vs.pending.sum()))
   got = mesh_lib.gather_batch(vs, mesh, n)
   got_outs = [mesh_lib.gather_batch(o, mesh, n, axis=1) for o in outs]
   if mesh.rank == 0:
@@ -319,6 +316,7 @@ def rank_train(ct, mesh):
   import hashlib
   import torch
   from crafter_tpu_torch.parallel import mesh as mesh_lib
+  from crafter_tpu_torch.utils import launches, zero_launches
   dev = mesh.device
   cfg = ct.PPOConfig(num_envs=PPO_ENVS, rollout_len=PPO_ROLLOUT,
                      epochs=PPO_EPOCHS, minibatches=PPO_MINIBATCHES,
@@ -349,7 +347,7 @@ def rank_train(ct, mesh):
 
   ppo._sum_grads = timed_sum_grads
   ts = init(ct.prng.key(0, dev))
-  zero_launch_counts()          # count the two updates' launches only
+  zero_launches()     # count the two updates' launches only
   params0 = {name: q.detach().clone()
              for name, q in ts.params.named_parameters()}
   updates = []
@@ -373,7 +371,7 @@ def rank_train(ct, mesh):
       if all(torch.equal(q.detach(), params0[name])
              for name, q in ts.params.named_parameters()
              if name.startswith(layer + '.'))]
-  res = dict(launches=launch_counts(), updates=updates, unchanged=unchanged,
+  res = dict(launches=launches(), updates=updates, unchanged=unchanged,
              update=ts.update, env_steps=ts.env_steps,
              local_envs=int(ts.obs.shape[0]))
   del ts, params0
@@ -417,11 +415,129 @@ def rank_main(argv):
   print('RESULT ' + json.dumps(res), flush=True)
 
 
-def card_line():
-  out = subprocess.run(
-      ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
-      capture_output=True, text=True, check=True, timeout=60).stdout
-  return out.strip().splitlines()[0]
+def phase7(root, card, need_launches):
+  """Phase 7: the tools layer (E1-E5), each tool driven through its
+  ``main`` as a user runs it, its launches counted by the tool itself from
+  0 after its set-up.  Returns the phase's record."""
+  import contextlib
+  import io
+  import torch
+  p_start = time.perf_counter()
+  tools = root / 'tools'
+  run = lambda name, argv: runpy.run_path(
+      str(tools / f'{name}.py'), run_name=name)['main'](argv)
+  env_kernels = ('tick', 'balance', 'noise2')
+  pixel_kernels = env_kernels + ('render_win79', 'daylight')
+  rec = {}
+  cwd = os.getcwd()
+  with tempfile.TemporaryDirectory() as tmp:
+    # The score tools write scores/ under the working directory.
+    os.chdir(tmp)
+    try:
+      # E1: the random baseline at its defaults, then its first chunks on
+      # the CPU through the plain path.
+      t0 = time.perf_counter()
+      e1 = run('random_baseline_cuda', [
+          '--steps', str(E1_STEPS), '--envs', str(E1_ENVS), '--outdir',
+          f'{tmp}/random'])
+      need_launches('E1 random baseline', e1['launches'], env_kernels)
+      if e1['score'] is None or not 0 < e1['score'] < 100 \
+          or e1['env_steps'] < E1_STEPS + E1_STEPS // 8:
+        fail(f'E1: record {e1}')
+      print(f'E1 random_baseline_cuda.py --steps {E1_STEPS} --envs {E1_ENVS} '
+            f'on {card}: crafter score {e1["score"]:.4f} % over '
+            f'{e1["episodes"]} episodes ({e1["env_steps_per_s"]:,.0f} '
+            f'env-steps/s, {e1["seconds"]:.1f} s; launches '
+            f'{e1["launches"]}); for context, not a gate: RESULTS.md has '
+            f'1.51 % for the JAX package on a TPU v5e (round 4\'s engine); '
+            f'success rates %: {e1["success_rates"]}', flush=True)
+      t1 = time.perf_counter()
+      e1_cpu = run('random_baseline_cuda', [
+          '--steps', str(E1_CPU_STEPS), '--envs', str(E1_ENVS), '--outdir',
+          f'{tmp}/random_cpu', '--device', 'cpu'])
+      chunks = -(-e1_cpu['env_steps'] // (E1_ENVS * 64))
+      card_lines = Path(tmp, 'random', 'stats.jsonl').read_text().splitlines()
+      cpu_lines = Path(tmp, 'random_cpu',
+                       'stats.jsonl').read_text().splitlines()
+      if chunks != 2 or not cpu_lines \
+          or card_lines[:len(cpu_lines)] != cpu_lines:
+        fail(f'E1: the CPU\'s {len(cpu_lines)} stats.jsonl lines of '
+             f'{chunks} chunks differ from the card\'s first lines')
+      print(f'E1 on the CPU, the first {chunks} chunks ({e1_cpu["env_steps"]} '
+            f'env steps): its {len(cpu_lines)} stats.jsonl lines == the '
+            f'card\'s first {len(cpu_lines)} ({time.perf_counter() - t1:.1f} '
+            's)', flush=True)
+      rec['e1'] = dict(record=e1, cpu_lines=len(cpu_lines), cpu_chunks=chunks,
+                       seconds=time.perf_counter() - t0)
+
+      # E2: the score tool on E1's logdir.
+      out = io.StringIO()
+      with contextlib.redirect_stdout(out):
+        run('score_run_cuda', [f'{tmp}/random', 'crafter_noreward', 'random',
+                               str(E1_STEPS)])
+      print(out.getvalue(), end='', flush=True)
+      m = re.search(r'^random: crafter score ([0-9.]+) ', out.getvalue(), re.M)
+      if not m or m.group(1) != f'{e1["score"]:.2f}':
+        fail(f'E2: score_run_cuda.py printed {m and m.group(1)}, E1 '
+             f'{e1["score"]:.2f}')
+      print(f'E2 score_run_cuda.py on E1\'s logdir: {m.group(1)} % == E1\'s',
+            flush=True)
+      rec['e2'] = dict(score=float(m.group(1)))
+    finally:
+      os.chdir(cwd)
+    torch.cuda.empty_cache()
+
+    # E3: the PPO bench, two timed updates at its defaults.
+    e3 = run('bench_ppo_cuda', ['--updates', '2'])
+    need_launches('E3 bench_ppo_cuda', e3['launches'], pixel_kernels)
+    if not e3['value'] > 0 or len(e3['update_ms']) != 2:
+      fail(f'E3: record {e3}')
+    print(f'E3 bench_ppo_cuda.py --updates 2 on {card}: {e3["value"]:,} '
+          f'env-steps/s, update ms {e3["update_ms"]} (rollout '
+          f'{e3["rollout_ms"]}, learn {e3["learn_ms"]}), first update '
+          f'{e3["compile_s"]} s; launches {e3["launches"]}', flush=True)
+    rec['e3'] = e3
+    torch.cuda.empty_cache()
+
+    # E4: the PPO stage budget, one rep at its defaults.
+    e4 = run('ppo_budget_cuda', ['--reps', '1'])
+    for stage, needed in (('env_only', env_kernels),
+                          ('env_render', pixel_kernels),
+                          ('rollout', pixel_kernels), ('full', pixel_kernels)):
+      need_launches(f'E4 ppo_budget_cuda {stage}', e4['launches'][stage],
+                    needed)
+    print(f'E4 ppo_budget_cuda.py --reps 1 on {card}: full '
+          f'{e4["full_steps_per_s"]:,} env-steps/s; launches by stage '
+          f'{e4["launches"]}', flush=True)
+    rec['e4'] = e4
+    torch.cuda.empty_cache()
+
+    # E5: the profile tables.
+    rec['e5'] = {}
+    for mode, needed in (('tick', env_kernels),
+                         ('group', ('group_tick', 'balance', 'noise2')),
+                         ('render', ('group_tick', 'balance', 'noise2',
+                                     'render_win79', 'daylight'))):
+      print(f'E5 profile_summary_cuda.py --iters 20 '
+            f'{"" if mode == "tick" else "--" + mode} on {card}:', flush=True)
+      e5 = run('profile_summary_cuda', [
+          '--iters', '20', '--logdir', f'{tmp}/profile_{mode}']
+          + ([] if mode == 'tick' else [f'--{mode}']))
+      need_launches(f'E5 profile_summary_cuda {mode}', e5['launches'],
+                    needed)
+      if not e5['top']:
+        fail(f'E5 profile_summary_cuda {mode}: no device op recorded')
+      rec['e5'][mode] = e5
+    print(f'E5 profile_learn_cuda.py --stage learn on {card}:', flush=True)
+    e5 = run('profile_learn_cuda', ['--stage', 'learn', '--logdir',
+                                    f'{tmp}/profile_learn'])
+    if not e5['top']:
+      fail('E5 profile_learn_cuda: no device op recorded')
+    rec['e5']['learn'] = e5
+    torch.cuda.empty_cache()
+  rec['seconds'] = time.perf_counter() - p_start
+  print(f'phase 7 (tools) on {card}: {rec["seconds"]:.1f} s', flush=True)
+  return rec
 
 
 def main():
@@ -446,6 +562,7 @@ def main():
   from crafter_tpu_torch import convert
   from crafter_tpu_torch.ops import noise, noise_cuda, roll_cuda
   from crafter_tpu_torch.state import leaves
+  from crafter_tpu_torch.utils import card_line
   sys.path.insert(0, str(root / 'tests'))
   import dense_states
 
@@ -1927,6 +2044,8 @@ def main():
       'd4': {'env_steps_per_s': d4_sps, 'ranks': d4, 'seconds': d4_s},
       'seconds': time.perf_counter() - d_start}}), flush=True)
 
+  tools_rec = phase7(root, card, need_launches)
+
   paths = (state_counts, pixel_counts, tick_counts, ppo_counts)
   launches = {
       'group_tick': state_counts['group_tick'],
@@ -1981,7 +2100,8 @@ def main():
       'compat': {'reset_pass_ms': reset_pass_ms, 'ms_per_group': compat_ms,
                  'reset_pass_profile': compat_profile,
                  'auto_reset_pass_profile': auto_profile},
-      'parity_steps_per_s': pcounts['steps'] / parity_s}))
+      'parity_steps_per_s': pcounts['steps'] / parity_s,
+      'tools': tools_rec}))
   print(card)
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

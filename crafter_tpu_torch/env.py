@@ -445,13 +445,15 @@ def _reset_pass(env: State, done: torch.Tensor, episode: torch.Tensor,
   The first ``reset_batch`` finished envs by index reset (overflow waits
   for the next pass).  With a ``mesh`` the batch is this rank's rows and
   the index is global: one all-reduce of the ranks' finished counts tells
-  the rank how many finished envs lie below its rows.  Worldgen runs
-  ``min(reset_batch, n)`` worlds for the ``n`` rows at hand; rows with no
-  env behind them generate a throwaway world from zero key data, as the
-  JAX package does.  Each world derives from its env's home key and
-  episode, so the worlds do not depend on the split into ranks.  Fresh
-  rows reach their envs by an index gather and a select, with no host
-  synchronisation.
+  the rank how many finished envs lie below its rows.  On the card
+  worldgen runs ``min(reset_batch, n)`` worlds for the ``n`` rows at hand;
+  rows with no env behind them generate a throwaway world from zero key
+  data, as the JAX package does.  On the CPU it runs only the worlds of the
+  selected envs (the plain worldgen costs seconds a pass there).  Each
+  world derives from its env's home key and episode, so the worlds do not
+  depend on the split into ranks or on the rows made.  Fresh rows reach
+  their envs by an index gather and a select, with no host
+  synchronisation on the card.
   """
   n = done.shape[0]
   dev = done.device
@@ -465,6 +467,14 @@ def _reset_pass(env: State, done: torch.Tensor, episode: torch.Tensor,
   rows.scatter_(0, torch.where(selected, rank, r).long(),
                 torch.arange(n, device=dev))
   rows = rows[:r]
+  if dev.type == 'cpu':
+    # Off the card a count stalls nothing: make only the rows that have an
+    # env (a prefix), and no world when none finished.  The envs' worlds
+    # are the same.
+    r = int(selected.sum())
+    if r == 0:
+      return env, episode, done
+    rows = rows[:r]
   has_env = rows < n
   src = rows.clamp_max(n - 1)
   gk = torch.where(has_env[:, None], home_key[src], 0)

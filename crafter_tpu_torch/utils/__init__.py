@@ -1,1 +1,2 @@
-from .profiling import Timer, trace
+from .profiling import (Timer, card_line, launches, tool_device, trace,
+                        zero_launches)

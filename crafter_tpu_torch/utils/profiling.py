@@ -1,10 +1,13 @@
 """Profiling helpers: a device trace and a host-side section timer (the
-port's counterpart of ``crafter_tpu/utils/profiling.py``)."""
+port's counterpart of ``crafter_tpu/utils/profiling.py``), the kernel
+wrappers' launch counts, and the card's name and power limit, which every
+number measured on a card is reported beside."""
 
 from __future__ import annotations
 
 import contextlib
 import pathlib
+import subprocess
 import time
 
 
@@ -48,3 +51,53 @@ class Timer:
              for name, dt in sorted(self.sections.items(),
                                     key=lambda kv: -kv[1])]
     return '\n'.join(lines)
+
+
+def card_line() -> str:
+  """The first card's name and power limit, as ``nvidia-smi
+  --query-gpu=name,power.limit --format=csv,noheader`` prints them."""
+  out = subprocess.run(
+      ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+      capture_output=True, text=True, check=True, timeout=60).stdout
+  return out.strip().splitlines()[0]
+
+
+def tool_device(device: str, tool: str):
+  """``(torch.device, card)`` for a tool run on ``device``: ``card`` is
+  :func:`card_line` on a GPU and None on the CPU.  Stops the tool when
+  ``device`` names CUDA and there is no card: a measurement never falls
+  back to the CPU."""
+  import torch
+  dev = torch.device(device)
+  if dev.type != 'cuda':
+    return dev, None
+  if not torch.cuda.is_available():
+    raise SystemExit(f'{tool}: no CUDA device (torch.cuda.is_available() is '
+                     'false); pass --device cpu to run the plain PyTorch '
+                     'path on the CPU')
+  return dev, card_line()
+
+
+def counted_wrappers():
+  """``(name, wrapper)`` of every kernel wrapper that counts its launches
+  (``wrapper.launches``; the wrappers of the 3-D noise and the roll
+  micro-bench, which no path of the package reaches, are left out)."""
+  from .. import render_cuda, state, step_cuda
+  from ..ops import noise_cuda
+  return (('group_tick', step_cuda.group_tick), ('tick', step_cuda.tick),
+          ('balance', step_cuda.balance), ('noise2', noise_cuda.noise2),
+          ('render_win79', render_cuda.render_win79),
+          ('daylight', state.daylight))
+
+
+def zero_launches() -> None:
+  """Sets the launch count of every wrapper of :func:`counted_wrappers` to
+  0."""
+  for _, fn in counted_wrappers():
+    fn.launches = 0
+
+
+def launches() -> dict:
+  """The launches each wrapper of :func:`counted_wrappers` has counted
+  since it was last set to 0."""
+  return {name: fn.launches for name, fn in counted_wrappers()}

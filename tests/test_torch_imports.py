@@ -2,7 +2,11 @@
 port's bench ``bench_cuda.py``, the GPU tools ``tools/bench_roll_cuda.py``,
 ``tools/bench_paths_cuda.py`` and ``tools/bench_render_cuda.py``, the
 multi-process tools ``tools/demo_64k_cuda.py`` and
-``tools/dist_worker_cuda.py``, ``tests/sharding_ranks.py`` (the port's gloo
+``tools/dist_worker_cuda.py``, the evaluation and training-measurement
+tools (``tools/random_baseline_cuda.py``, ``score_run_cuda.py``,
+``bench_ppo_cuda.py``, ``ppo_budget_cuda.py``, ``profile_summary_cuda.py``,
+``profile_learn_cuda.py``) and the examples ``examples/run_random_torch.py``
+and ``examples/run_ppo_torch.py``, ``tests/sharding_ranks.py`` (the port's gloo
 ranks of the sharding tests) and ``tests/dense_states.py`` and
 ``tests/parity_digest.py`` (which ``chip_smoke.py`` imports) import
 neither JAX (nor flax, optax, orbax or chex) nor the JAX package nor an
@@ -34,6 +38,14 @@ SCRIPTS = [ROOT / 'chip_smoke.py', ROOT / 'bench_cuda.py',
            ROOT / 'tools' / 'bench_render_cuda.py',
            ROOT / 'tools' / 'demo_64k_cuda.py',
            ROOT / 'tools' / 'dist_worker_cuda.py',
+           ROOT / 'tools' / 'random_baseline_cuda.py',
+           ROOT / 'tools' / 'score_run_cuda.py',
+           ROOT / 'tools' / 'bench_ppo_cuda.py',
+           ROOT / 'tools' / 'ppo_budget_cuda.py',
+           ROOT / 'tools' / 'profile_summary_cuda.py',
+           ROOT / 'tools' / 'profile_learn_cuda.py',
+           ROOT / 'examples' / 'run_random_torch.py',
+           ROOT / 'examples' / 'run_ppo_torch.py',
            ROOT / 'tests' / 'sharding_ranks.py',
            ROOT / 'tests' / 'dense_states.py',
            ROOT / 'tests' / 'parity_digest.py']

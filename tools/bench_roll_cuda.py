@@ -16,7 +16,6 @@ Run on a machine with a GPU and nvcc: python tools/bench_roll_cuda.py [n_rows]
 """
 
 import pathlib
-import subprocess
 import sys
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
@@ -27,12 +26,10 @@ def main():
   if not torch.cuda.is_available():
     raise SystemExit('bench_roll_cuda: needs a CUDA device')
   from crafter_tpu_torch.ops import roll_cuda
+  from crafter_tpu_torch.utils import card_line
 
   n = int(sys.argv[1]) if len(sys.argv) > 1 else 40960
-  card = subprocess.run(
-      ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
-      capture_output=True, text=True, check=True,
-      timeout=60).stdout.strip().splitlines()[0]
+  card = card_line()
   gen = torch.Generator(device='cuda')
   gen.manual_seed(0)
   x = torch.randint(0, 1 << 24, (n, roll_cuda.COLS), generator=gen,

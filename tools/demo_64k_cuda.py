@@ -22,7 +22,6 @@ card need ``--backend gloo`` (NCCL refuses two ranks on one GPU); on the CPU,
 """
 
 import pathlib
-import subprocess
 import sys
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
@@ -30,14 +29,6 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 import argparse  # noqa: E402
 import json  # noqa: E402
 import time  # noqa: E402
-
-
-def card_line():
-  """The card's name and power limit as nvidia-smi gives them."""
-  out = subprocess.run(
-      ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
-      capture_output=True, text=True, check=True, timeout=60).stdout
-  return out.strip().splitlines()[0]
 
 
 def run_size(n, steps, cfg, mesh, backend, card):
@@ -128,15 +119,12 @@ def main(argv=None):
   args = parser.parse_args(argv)
 
   import os
-  import torch
   import torch.distributed as dist
   from crafter_tpu_torch.config import EnvConfig
   from crafter_tpu_torch.parallel.mesh import distributed_init, dp_mesh
+  from crafter_tpu_torch.utils import tool_device
 
-  if args.device == 'cuda' and not torch.cuda.is_available():
-    raise SystemExit('demo_64k_cuda: no CUDA device (pass --device cpu to '
-                     'run on the CPU)')
-  card = card_line() if args.device == 'cuda' else None
+  _, card = tool_device(args.device, 'demo_64k_cuda')
   if args.coordinator or 'RANK' in os.environ:
     distributed_init(args.coordinator, args.num_processes, args.process_id,
                      args.backend, args.device)
