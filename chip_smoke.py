@@ -118,6 +118,20 @@ Run from the repository root on a machine with an NVIDIA H100:
    ``tools/profile_summary_cuda.py --iters 20`` per tick, ``--group`` and
    ``--render`` and ``tools/profile_learn_cuda.py --stage learn``, each
    table with device ops and each path's kernels launched.
+8. Drives the JAX package's last measuring tools, each through its
+   ``main`` (or its command line) as a user runs it, the launch counts set
+   to 0 just before each: M1, ``tools/bench_obs_shuffle_cuda.py`` at its
+   defaults (262144 frames, 8 minibatches; every case's sum equal to
+   ``nhwc``'s); M2, ``tools/bench_unpack_cuda.py 40960`` (U0 == U1, and
+   the render kernel's three output formats equal byte for byte on real
+   windows; the render launched); M3, ``tools/sweep_group_block_cuda.py``
+   at its defaults (four geometries of the group kernel, each a build of
+   its own, every one's states, rewards and occupancy equal to the
+   shipped build's; each variant's registers, spills and blocks an SM
+   printed; the group kernel launched); M4, ``bench_cuda.py --sizes 4096
+   2048`` as a subprocess (exit 0, a record with ``value`` > 0, its
+   children's state-only and pixel kernels launched).  Prints the phase's
+   record as one JSON line.
 
 Every kernel's time is taken with the wrapper (CUDA events) and on the
 device alone (``torch.profiler``); the balance also prints the host's
@@ -213,6 +227,11 @@ RANK_TIMEOUT = 420          # seconds a subprocess rank may take
 # its first two chunks of 64 ticks (target = steps + steps // 8).
 E1_STEPS, E1_ENVS = 1_000_000, 512
 E1_CPU_STEPS = 40_000
+# Phase 8: the unpack tool at its JAX counterpart's frame count, and the
+# bench's size fallback on bench.py's first two sizes.
+M2_FRAMES = 40960
+M4_SIZES = (4096, 2048)
+M4_TIMEOUT = 600            # seconds the bench's subprocess may take
 
 
 def fail(msg):
@@ -537,6 +556,95 @@ def phase7(root, card, need_launches):
     torch.cuda.empty_cache()
   rec['seconds'] = time.perf_counter() - p_start
   print(f'phase 7 (tools) on {card}: {rec["seconds"]:.1f} s', flush=True)
+  return rec
+
+
+def phase8(root, card, need_launches):
+  """Phase 8: the measuring tools (M1-M4), each driven as a user runs it,
+  the launch counts set to 0 just before each and read just after.
+  Returns the phase's record."""
+  import torch
+  from crafter_tpu_torch.utils import launches, zero_launches
+  p_start = time.perf_counter()
+  tools = root / 'tools'
+  run = lambda name, argv: runpy.run_path(
+      str(tools / f'{name}.py'), run_name=name)['main'](argv)
+  rec = {}
+  torch.cuda.empty_cache()
+
+  # M1: the obs gather layouts; the tool stops on a failed consumption
+  # check.
+  t0 = time.perf_counter()
+  m1 = run('bench_obs_shuffle_cuda', [])
+  rec['m1'] = dict(ms=m1['ms'], bound_ms=m1['bound_ms'], sums=m1['sums'],
+                   peak_bytes=m1['peak_bytes'],
+                   seconds=time.perf_counter() - t0)
+  print(f'M1 bench_obs_shuffle_cuda.py on {card}: ms {m1["ms"]}, peak '
+        f'{m1["peak_bytes"] / 1e9:.2f} GB', flush=True)
+  del m1
+  torch.cuda.empty_cache()
+
+  # M2: U0 / U1, and the render kernel's three formats against each other.
+  t0 = time.perf_counter()
+  zero_launches()
+  m2 = run('bench_unpack_cuda', [str(M2_FRAMES)])
+  m2_counts = launches()
+  need_launches('M2 bench_unpack_cuda', m2_counts, ('render_win79',))
+  rec['m2'] = dict(record=m2, launches=m2_counts,
+                   seconds=time.perf_counter() - t0)
+  print(f'M2 bench_unpack_cuda.py {M2_FRAMES} on {card}: loop ms '
+        f'{m2["loop_ms"]}, render ms {m2["render_ms"]}, unpack ms '
+        f'{m2["unpack_ms"]}; launches {m2_counts}', flush=True)
+  torch.cuda.empty_cache()
+
+  # M3: the group kernel's geometries; the tool stops on a variant that
+  # differs from the shipped build or does not advance.
+  t0 = time.perf_counter()
+  zero_launches()
+  m3 = run('sweep_group_block_cuda', [])
+  m3_counts = launches()
+  need_launches('M3 sweep_group_block_cuda', m3_counts, ('group_tick',))
+  for label, entry in m3['variants'].items():
+    if entry['registers'] is None or not entry['blocks_per_sm'] >= 1:
+      fail(f'M3: geometry {label}: {entry}')
+  rec['m3'] = dict(record=m3, launches=m3_counts,
+                   seconds=time.perf_counter() - t0)
+  print(f'M3 sweep_group_block_cuda.py on {card}: '
+        + '; '.join(f'{label}: {e["ms_per_tick"]:.4f} ms/tick, '
+                    f'{e["registers"]} registers, {e["spill_stores"]} B '
+                    'spilled, '
+                    f'{e["blocks_per_sm"]} blocks/SM'
+                    for label, e in m3['variants'].items())
+        + f'; launches {m3_counts}', flush=True)
+  torch.cuda.empty_cache()
+
+  # M4: the bench's size fallback, as its own process.
+  t0 = time.perf_counter()
+  out = subprocess.run(
+      [sys.executable, str(root / 'bench_cuda.py'), '--sizes',
+       *(str(n) for n in M4_SIZES)], capture_output=True, text=True,
+      timeout=M4_TIMEOUT, cwd=root)
+  for line in out.stderr.strip().splitlines()[-5:]:
+    print(f'  bench_cuda.py --sizes: {line}')
+  lines = out.stdout.strip().splitlines()
+  print(f'M4 bench_cuda.py --sizes {" ".join(map(str, M4_SIZES))} on {card}: '
+        f'exit {out.returncode}, {lines[-1] if lines else "no output"}',
+        flush=True)
+  if out.returncode != 0 or not lines:
+    fail(f'M4: bench_cuda.py --sizes exited {out.returncode}')
+  m4 = json.loads(lines[-1])
+  if not (m4['value'] > 0 and m4.get('pixel_value', 0) > 0):
+    fail(f'M4: record {m4}')
+  need_launches('M4 bench --sizes, state-only', m4['launches']['state_only'],
+                ('group_tick', 'balance', 'noise2'))
+  need_launches('M4 bench --sizes, pixel', m4['launches']['pixel'],
+                ('group_tick', 'balance', 'noise2', 'render_win79',
+                 'daylight'))
+  rec['m4'] = dict(record=m4, seconds=time.perf_counter() - t0)
+  rec['seconds'] = time.perf_counter() - p_start
+  print(json.dumps({'measuring_tools': rec}), flush=True)
+  print(f'phase 8 (measuring tools) on {card}: {rec["seconds"]:.1f} s',
+        flush=True)
   return rec
 
 
@@ -2045,6 +2153,7 @@ def main():
       'seconds': time.perf_counter() - d_start}}), flush=True)
 
   tools_rec = phase7(root, card, need_launches)
+  measuring_rec = phase8(root, card, need_launches)
 
   paths = (state_counts, pixel_counts, tick_counts, ppo_counts)
   launches = {
@@ -2101,7 +2210,7 @@ def main():
                  'reset_pass_profile': compat_profile,
                  'auto_reset_pass_profile': auto_profile},
       'parity_steps_per_s': pcounts['steps'] / parity_s,
-      'tools': tools_rec}))
+      'tools': tools_rec, 'measuring_tools': measuring_rec}))
   print(card)
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

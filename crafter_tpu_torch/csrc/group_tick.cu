@@ -86,8 +86,22 @@ using crafter::cell_bits;
 using crafter::fmix;
 using crafter::u24;
 
-constexpr int kThreads = 256;
-constexpr int kMinBlocks = 5;        // resident blocks per SM at 64 x 64
+// The block's geometry: threads a block (a multiple of 32 from 64 to 1024:
+// the loops stride by blockDim.x and the player phase runs on warp 0) and
+// the minimum resident blocks per SM that __launch_bounds__ asks for.  A
+// build may set both with -D (_build.library(geometry=...)); these are the
+// shipped values.
+#ifndef CRAFTER_GROUP_THREADS
+#define CRAFTER_GROUP_THREADS 256
+#endif
+#ifndef CRAFTER_GROUP_MIN_BLOCKS
+#define CRAFTER_GROUP_MIN_BLOCKS 5   // resident blocks per SM at 64 x 64
+#endif
+constexpr int kThreads = CRAFTER_GROUP_THREADS;
+constexpr int kMinBlocks = CRAFTER_GROUP_MIN_BLOCKS;
+static_assert(kThreads % 32 == 0 && kThreads >= 64 && kThreads <= 1024,
+              "CRAFTER_GROUP_THREADS: a multiple of 32 in [64, 1024]");
+static_assert(kMinBlocks >= 1, "CRAFTER_GROUP_MIN_BLOCKS: at least 1");
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kItems = 16, kAch = 22;
 constexpr int kRecScalars = 13;

@@ -11,7 +11,10 @@
 For CUDA tensors each wrapper launches its kernel; for CPU tensors it runs
 the twin.  ``group_tick.launches`` / ``tick.launches`` /
 ``balance.launches`` count launches.  :func:`occupancy` reports how many
-blocks of the group or tick kernel an SM holds.
+blocks of the group or tick kernel an SM holds.  ``group_tick(...,
+geometry=(threads, min_blocks))`` launches a geometry variant of the group
+kernel (``_build.library(geometry=...)``), the counterpart of
+``step_group_batch(..., block=)``; it gives the same results.
 """
 
 from __future__ import annotations
@@ -151,13 +154,18 @@ def _state_from(states: State, outs, rec_out: torch.Tensor, **fields) -> State:
 
 
 def group_tick(states: State, actions: torch.Tensor, cfg: EnvConfig,
-               snapshots: bool = False):
+               snapshots: bool = False, geometry=None):
   """K fused ticks; returns ``(states, raw, occ_pre)``, and a
   ``step.GroupSnaps`` after them with ``snapshots``, as
-  ``step.step_group_plain`` does."""
+  ``step.step_group_plain`` does.  ``geometry``: ``(threads, min_blocks)``
+  of a variant build of the kernel, None for the shipped one; the plain
+  twin has no geometry, so CPU tensors refuse one."""
   if not states.mat_map.is_cuda:
+    if geometry is not None:
+      raise ValueError('geometry is a build of the CUDA kernel; the plain '
+                       'group step on the CPU has none')
     return step_lib.step_group_plain(states, actions, cfg, snapshots)
-  out = _launch_group_tick(states, actions, cfg, snapshots)
+  out = _launch_group_tick(states, actions, cfg, snapshots, geometry)
   group_tick.launches += 1
   return out
 
@@ -166,7 +174,7 @@ group_tick.launches = 0
 
 
 def _launch_group_tick(states: State, actions: torch.Tensor, cfg: EnvConfig,
-                       snapshots: bool):
+                       snapshots: bool, geometry=None):
   w, h = cfg.area
   c = w * h
   k, n = actions.shape
@@ -192,7 +200,7 @@ def _launch_group_tick(states: State, actions: torch.Tensor, cfg: EnvConfig,
                         device=dev))
   snap_ptrs = ([t.data_ptr() for _, t in state_lib.leaves(snaps)]
                if snapshots else [None] * 6)
-  lib = _build.library()
+  lib = _build.library(geometry)
   ptrs = [t.data_ptr() for t in (*planes, acts)]
   ptrs += [ctypes.addressof(rec_in)]
   ptrs += [t.data_ptr() for t in (_rules_blob(str(dev)), *outs, occ, rec_out,
@@ -247,13 +255,15 @@ def _launch_tick(states: State, actions, s_player, s_mob, cfg: EnvConfig):
   return _state_from(states, outs, rec_out)
 
 
-def occupancy(cfg: EnvConfig, kernel: str = 'group') -> tuple[int, int]:
+def occupancy(cfg: EnvConfig, kernel: str = 'group',
+              geometry=None) -> tuple[int, int]:
   """``(blocks per SM, shared bytes per block)`` of the group kernel
   (``kernel='group'``) or the tick kernel (``'tick'``) for ``cfg``'s area
-  and update window, from the CUDA occupancy calculator."""
+  and update window, from the CUDA occupancy calculator; of the variant
+  build of ``geometry`` when one is given."""
   blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
   w, h = cfg.area
-  _build.check(_build.library().crafter_tick_occupancy(
+  _build.check(_build.library(geometry).crafter_tick_occupancy(
       ('group', 'tick').index(kernel), w, h, cfg.update_distance,
       ctypes.byref(blocks), ctypes.byref(smem)), f'{kernel} occupancy')
   return blocks.value, smem.value

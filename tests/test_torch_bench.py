@@ -30,9 +30,10 @@ def test_bench_on_cpu_prints_the_keys(bench, capsys):
                        '--pixel-ticks', '20'])
   line = capsys.readouterr().out.strip().splitlines()[-1]
   assert json.loads(line) == rec
-  for key in ('metric', 'value', 'unit', 'vs_baseline', 'pixel_value',
-              'pixel_vs_baseline', 'median_value', 'pixel_median_value'):
-    assert key in rec, key
+  # Exactly these keys, in this order: --sizes adds its own only there.
+  assert list(rec) == ['metric', 'value', 'unit', 'vs_baseline',
+                       'pixel_value', 'pixel_vs_baseline', 'median_value',
+                       'pixel_median_value', 'repeats', 'device']
   assert rec['unit'] == 'env-steps/s' and '@ 8 envs' in rec['metric']
   assert rec['device'] == {'platform': 'cpu', 'kind': 'cpu', 'card': None}
   for name, best, median in (('state_only', 'value', 'median_value'),

@@ -396,6 +396,67 @@ def test_tick_kernel_occupancy(dev):
     assert blocks >= 5 and smem <= 46 * 1024, (kernel, blocks, smem)
 
 
+SWEEP_GEOMETRIES = [(128, 5), (256, 5), (256, 4), (512, 4)]
+
+
+@pytest.mark.parametrize('geometry', SWEEP_GEOMETRIES, ids=str)
+def test_group_tick_geometry_variants_match(dev, geometry):
+  """Each geometry of tools/sweep_group_block_cuda.py's default sweep (a
+  build of its own but for the shipped 256:5): the group tick with and
+  without snapshots equals the shipped build's and the plain twin's on
+  dense states, and the launches are counted."""
+  cfg = ct.EnvConfig()
+  states = convert.state_from_numpy(
+      dense_states.dense_states(128, 7, cfg.area, cfg.update_distance), dev)
+  gen = torch.Generator().manual_seed(9)
+  acts = torch.randint(0, 17, (10, 128), generator=gen).to(dev)
+  for snaps in (False, True):
+    before = step_cuda.group_tick.launches
+    got = step_cuda.group_tick(states, acts, cfg, snapshots=snaps,
+                               geometry=geometry)
+    assert step_cuda.group_tick.launches == before + 1
+    shipped = step_cuda.group_tick(states, acts, cfg, snapshots=snaps)
+    ref = step_lib.step_group_plain(states, acts, cfg, snapshots=snaps)
+    for a, b, c in zip(got[:3], shipped[:3], ref[:3]):
+      _assert_equal(a, b)
+      _assert_equal(a, c)
+    if snaps:
+      assert torch.equal(got[3].packed[:-1], ref[3].packed[:-1])
+      assert torch.equal(got[3].packed[:-1], shipped[3].packed[:-1])
+      for name in ('px', 'py', 'facing', 'sleeping', 'inv'):
+        assert torch.equal(getattr(got[3], name), getattr(ref[3], name))
+
+
+@pytest.mark.parametrize('geometry', SWEEP_GEOMETRIES, ids=str)
+def test_group_tick_geometry_occupancy(dev, geometry):
+  """The variant library's occupancy: at least the minimum blocks its
+  launch bounds ask for (the shared memory allows 5 at 64 x 64), no more
+  threads than an SM holds; the shipped geometry reports the default's."""
+  threads, min_blocks = geometry
+  cfg = ct.EnvConfig()
+  for kernel in ('group', 'tick'):
+    blocks, smem = step_cuda.occupancy(cfg, kernel, geometry=geometry)
+    default = step_cuda.occupancy(cfg, kernel)
+    assert min_blocks <= blocks and blocks * threads <= 2048, (kernel, blocks)
+    assert smem == default[1]
+    if geometry == (256, 5):
+      assert blocks == default[0]
+
+
+def test_render_formats_agree_at_4096(dev):
+  """The render kernel's three output formats on 4096 frames of real
+  windows (tools/bench_unpack_cuda.py's check): frames == the bytes of the
+  packed lanes == the words."""
+  cfg = ct.EnvConfig()
+  atlas = ct.bake_atlas(cfg.size, cfg.view, cfg.item_rows, dev)
+  args = _frames(dev, 4096, None, 11)
+  frames, lanes, words = (
+      ct.render_win79(*args, atlas, cfg.size, fmt)
+      for fmt in ('frames', 'packed', 'words'))
+  assert torch.equal(frames, ct.render.frame_image(lanes, cfg.size))
+  assert torch.equal(words.view(torch.uint8).reshape(frames.shape), frames)
+
+
 def test_noise3_kernel_matches_plain_twin(dev):
   gen = torch.Generator(device=dev)
   gen.manual_seed(6)

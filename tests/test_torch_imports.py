@@ -5,7 +5,9 @@ multi-process tools ``tools/demo_64k_cuda.py`` and
 ``tools/dist_worker_cuda.py``, the evaluation and training-measurement
 tools (``tools/random_baseline_cuda.py``, ``score_run_cuda.py``,
 ``bench_ppo_cuda.py``, ``ppo_budget_cuda.py``, ``profile_summary_cuda.py``,
-``profile_learn_cuda.py``) and the examples ``examples/run_random_torch.py``
+``profile_learn_cuda.py``), the measuring tools
+``tools/bench_obs_shuffle_cuda.py``, ``bench_unpack_cuda.py`` and
+``sweep_group_block_cuda.py``, the examples ``examples/run_random_torch.py``
 and ``examples/run_ppo_torch.py``, ``tests/sharding_ranks.py`` (the port's gloo
 ranks of the sharding tests) and ``tests/dense_states.py`` and
 ``tests/parity_digest.py`` (which ``chip_smoke.py`` imports) import
@@ -44,6 +46,9 @@ SCRIPTS = [ROOT / 'chip_smoke.py', ROOT / 'bench_cuda.py',
            ROOT / 'tools' / 'ppo_budget_cuda.py',
            ROOT / 'tools' / 'profile_summary_cuda.py',
            ROOT / 'tools' / 'profile_learn_cuda.py',
+           ROOT / 'tools' / 'bench_obs_shuffle_cuda.py',
+           ROOT / 'tools' / 'bench_unpack_cuda.py',
+           ROOT / 'tools' / 'sweep_group_block_cuda.py',
            ROOT / 'examples' / 'run_random_torch.py',
            ROOT / 'examples' / 'run_ppo_torch.py',
            ROOT / 'tests' / 'sharding_ranks.py',
