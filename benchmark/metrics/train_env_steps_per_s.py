@@ -1,0 +1,7 @@
+"""``train_env_steps_per_s``: env-steps of every PPO update in the window over the
+window's seconds, from its start to the synchronise after its last call
+(host clock)."""
+
+
+def read(ctx):
+  return ctx.work / ctx.window_s if ctx.calls else None
