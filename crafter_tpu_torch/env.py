@@ -39,6 +39,7 @@ from . import step as step_lib
 from . import step_cuda, worldgen
 from .config import DEFAULT_CONFIG, EnvConfig
 from .state import EntMaps, Player, State
+from .utils import profiling
 
 try:  # Mirror the reference's optional gym dependency (env.py:11-22).
   import gymnasium as _gym
@@ -453,69 +454,76 @@ def _reset_pass(env: State, done: torch.Tensor, episode: torch.Tensor,
   world derives from its env's home key and episode, so the worlds do not
   depend on the split into ranks or on the rows made.  Fresh rows reach
   their envs by an index gather and a select, with no host
-  synchronisation on the card.
+  synchronisation on the card.  For a sink (``utils.profiling``) the pass
+  is the ``reset_pass`` span and counts ``worlds_made`` and ``envs_reset``
+  (the finished envs, at most the pass's budget).
   """
-  n = done.shape[0]
-  dev = done.device
-  rank = torch.cumsum(done.to(torch.int32), 0) - 1
-  selected = done & (rank < reset_batch - _finished_below(rank[-1] + 1, mesh))
-  r = min(reset_batch, n)
-  ep_next = episode + 1
+  with profiling.span('reset_pass'):
+    n = done.shape[0]
+    dev = done.device
+    rank = torch.cumsum(done.to(torch.int32), 0) - 1
+    finished = rank[-1] + 1
+    budget = reset_batch - _finished_below(finished, mesh)
+    selected = done & (rank < budget)
+    profiling.count('envs_reset', finished, budget)
+    r = min(reset_batch, n)
+    ep_next = episode + 1
 
-  # Row j of the reset batch is the env of rank j (index n: no env).
-  rows = torch.full((r + 1,), n, dtype=torch.long, device=dev)
-  rows.scatter_(0, torch.where(selected, rank, r).long(),
-                torch.arange(n, device=dev))
-  rows = rows[:r]
-  if dev.type == 'cpu':
-    # Off the card a count stalls nothing: make only the rows that have an
-    # env (a prefix), and no world when none finished.  The envs' worlds
-    # are the same.
-    r = int(selected.sum())
+    # Row j of the reset batch is the env of rank j (index n: no env).
+    rows = torch.full((r + 1,), n, dtype=torch.long, device=dev)
+    rows.scatter_(0, torch.where(selected, rank, r).long(),
+                  torch.arange(n, device=dev))
+    rows = rows[:r]
+    if dev.type == 'cpu':
+      # Off the card a count stalls nothing: make only the rows that have an
+      # env (a prefix), and no world when none finished.  The envs' worlds
+      # are the same.
+      r = int(selected.sum())
+      rows = rows[:r]
+    profiling.count('worlds_made', r)
     if r == 0:
       return env, episode, done
-    rows = rows[:r]
-  has_env = rows < n
-  src = rows.clamp_max(n - 1)
-  gk = torch.where(has_env[:, None], home_key[src], 0)
-  gep = torch.where(has_env, ep_next[src], 0)
-  fresh = worldgen.generate_world(prng.fold_in(gk, gep), cfg)
+    has_env = rows < n
+    src = rows.clamp_max(n - 1)
+    gk = torch.where(has_env[:, None], home_key[src], 0)
+    gep = torch.where(has_env, ep_next[src], 0)
+    fresh = worldgen.generate_world(prng.fold_in(gk, gep), cfg)
 
-  take = rank.clamp(0, r - 1).long()      # env -> its fresh row
+    take = rank.clamp(0, r - 1).long()      # env -> its fresh row
 
-  def merge(old, new):
-    sel = selected.reshape((n,) + (1,) * (old.ndim - 1))
-    return torch.where(sel, new.index_select(0, take), old)
+    def merge(old, new):
+      sel = selected.reshape((n,) + (1,) * (old.ndim - 1))
+      return torch.where(sel, new.index_select(0, take), old)
 
-  def sel(const, old):
-    s = selected.reshape((n,) + (1,) * (old.ndim - 1))
-    return torch.where(s, torch.as_tensor(const, dtype=old.dtype,
-                                          device=dev), old)
+    def sel(const, old):
+      s = selected.reshape((n,) + (1,) * (old.ndim - 1))
+      return torch.where(s, torch.as_tensor(const, dtype=old.dtype,
+                                            device=dev), old)
 
-  tables = rules.TABLES
-  init_hp = int(tables.item_initial[rules.ITEM_HEALTH])
-  p = env.player
-  env = State(
-      mat_map=merge(env.mat_map, fresh.mat_map),
-      ent=EntMaps(etype=merge(env.ent.etype, fresh.ent.etype),
-                  health=merge(env.ent.health, fresh.ent.health),
-                  aux=sel(0, env.ent.aux), facing=sel(0, env.ent.facing)),
-      player=Player(
-          pos=sel(list(cfg.center), p.pos),
-          facing=sel(rules.DIR_DOWN, p.facing),
-          inventory=sel(tables.item_initial.tolist(), p.inventory),
-          achievements=sel(0, p.achievements),
-          sleeping=sel(False, p.sleeping),
-          hunger=sel(0, p.hunger), thirst=sel(0, p.thirst),
-          fatigue=sel(0, p.fatigue), recover=sel(0, p.recover),
-          last_health=sel(init_hp, p.last_health)),
-      step=sel(0, env.step),
-      key=merge(env.key, fresh.key),
-      unlocked=sel(False, env.unlocked),
-      env_last_health=sel(init_hp, env.env_last_health),
-      chunk_touched=merge(env.chunk_touched, fresh.chunk_touched))
-  episode = torch.where(selected, ep_next, episode)
-  return env, episode, done & ~selected
+    tables = rules.TABLES
+    init_hp = int(tables.item_initial[rules.ITEM_HEALTH])
+    p = env.player
+    env = State(
+        mat_map=merge(env.mat_map, fresh.mat_map),
+        ent=EntMaps(etype=merge(env.ent.etype, fresh.ent.etype),
+                    health=merge(env.ent.health, fresh.ent.health),
+                    aux=sel(0, env.ent.aux), facing=sel(0, env.ent.facing)),
+        player=Player(
+            pos=sel(list(cfg.center), p.pos),
+            facing=sel(rules.DIR_DOWN, p.facing),
+            inventory=sel(tables.item_initial.tolist(), p.inventory),
+            achievements=sel(0, p.achievements),
+            sleeping=sel(False, p.sleeping),
+            hunger=sel(0, p.hunger), thirst=sel(0, p.thirst),
+            fatigue=sel(0, p.fatigue), recover=sel(0, p.recover),
+            last_health=sel(init_hp, p.last_health)),
+        step=sel(0, env.step),
+        key=merge(env.key, fresh.key),
+        unlocked=sel(False, env.unlocked),
+        env_last_health=sel(init_hp, env.env_last_health),
+        chunk_touched=merge(env.chunk_touched, fresh.chunk_touched))
+    episode = torch.where(selected, ep_next, episode)
+    return env, episode, done & ~selected
 
 
 class VecEnv:

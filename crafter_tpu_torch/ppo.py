@@ -37,6 +37,7 @@ from .config import DEFAULT_CONFIG, EnvConfig
 from .env import CrafterEnv, VecState, home_keys, vec_reset_chunked, vec_step
 from .models import CnnPolicy
 from .parallel.mesh import Mesh, psum_stats, replicate, shard_batch
+from .utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,66 +153,68 @@ class PPO:
   @torch.no_grad()
   def _rollout(self, ts: PPOState) -> Tuple[PPOState, Transition,
                                             torch.Tensor]:
-    cfg, env_cfg = self.cfg, self.env_cfg
-    k = env_cfg.balance_every
-    t_len, n = cfg.rollout_len, ts.obs.shape[0]
-    # When the rollout divides into whole balance-cadence groups, step the
-    # env on the group cadence: balance on each group's last tick and one
-    # reset pass per K ticks, sized K * reset_batch.  Same semantics as the
-    # group path (env.vec_step_group); the policy still acts every tick on
-    # that tick's frame.
-    grouped = t_len % k == 0 and t_len >= k
-    dev = self.device
-    buf = lambda shape, dtype: torch.empty((t_len, n) + shape, dtype=dtype,
-                                           device=dev)
-    traj = Transition(
-        obs=buf(tuple(ts.obs.shape[1:]), torch.uint8),
-        action=buf((), torch.int64), logp=buf((), torch.float32),
-        value=buf((), torch.float32), reward=buf((), torch.float32),
-        done=buf((), torch.bool), ended=buf((), torch.bool),
-        raw_reward=buf((), torch.float32),
-        achievements=buf((rules.N_ACHIEVEMENTS,), torch.int32))
-    vec, obs, key = ts.vec, ts.obs, ts.key
-    policy = ts.params
-    rows = torch.arange(n, device=dev)
-    # This rank's rows of the global draw, as (start, total).
-    mine = (self.mesh.rows(cfg.num_envs).start, cfg.num_envs)
-    for t in range(t_len):
-      # Envs latched `pending` at tick start are finished episodes idling
-      # for a reset slot (up to K-1 ticks on the group cadence): their
-      # rewards this tick are post-terminal junk, so zero them for
-      # training.  `done` stays latched true, so GAE already cuts the
-      # bootstrap through these ticks; stats key on the one-shot `ended`.
-      stale = vec.pending
-      key, k_act = prng.split(key, 2)
-      out = policy(obs)
-      action = prng.categorical(k_act, out.logits, mine)
-      logp = torch.log_softmax(out.logits, -1)[rows, action]
-      if grouped:
-        vec, env_out, stepped = vec_step(
-            vec, action.to(torch.int32), env_cfg, k * cfg.reset_batch,
-            reset_every=k, balance=(t % k == k - 1), mesh=self.mesh)
-      else:
-        vec, env_out, stepped = vec_step(vec, action.to(torch.int32),
-                                         env_cfg, cfg.reset_batch,
-                                         mesh=self.mesh)
-      traj.obs[t] = obs
-      traj.action[t] = action
-      traj.logp[t] = logp
-      traj.value[t] = out.value
-      if env_cfg.reward:
-        traj.reward[t] = torch.where(stale, 0.0, env_out.reward)
-      else:
-        traj.reward[t] = 0.0
-      traj.done[t] = env_out.done
-      traj.ended[t] = env_out.ended
-      traj.raw_reward[t] = env_out.reward
-      traj.achievements[t] = stepped.player.achievements
-      obs = self.core.observe_batch(vec.env)
-    last_value = policy(obs).value
-    ts = dataclasses.replace(ts, vec=vec, obs=obs, key=key,
-                             env_steps=ts.env_steps + t_len * cfg.num_envs)
-    return ts, traj, last_value
+    with profiling.span('rollout'):
+      cfg, env_cfg = self.cfg, self.env_cfg
+      k = env_cfg.balance_every
+      t_len, n = cfg.rollout_len, ts.obs.shape[0]
+      # When the rollout divides into whole balance-cadence groups, step the
+      # env on the group cadence: balance on each group's last tick and one
+      # reset pass per K ticks, sized K * reset_batch.  Same semantics as the
+      # group path (env.vec_step_group); the policy still acts every tick on
+      # that tick's frame.
+      grouped = t_len % k == 0 and t_len >= k
+      dev = self.device
+      buf = lambda shape, dtype: torch.empty((t_len, n) + shape, dtype=dtype,
+                                             device=dev)
+      traj = Transition(
+          obs=buf(tuple(ts.obs.shape[1:]), torch.uint8),
+          action=buf((), torch.int64), logp=buf((), torch.float32),
+          value=buf((), torch.float32), reward=buf((), torch.float32),
+          done=buf((), torch.bool), ended=buf((), torch.bool),
+          raw_reward=buf((), torch.float32),
+          achievements=buf((rules.N_ACHIEVEMENTS,), torch.int32))
+      vec, obs, key = ts.vec, ts.obs, ts.key
+      policy = ts.params
+      rows = torch.arange(n, device=dev)
+      # This rank's rows of the global draw, as (start, total).
+      mine = (self.mesh.rows(cfg.num_envs).start, cfg.num_envs)
+      for t in range(t_len):
+        # Envs latched `pending` at tick start are finished episodes idling
+        # for a reset slot (up to K-1 ticks on the group cadence): their
+        # rewards this tick are post-terminal junk, so zero them for
+        # training.  `done` stays latched true, so GAE already cuts the
+        # bootstrap through these ticks; stats key on the one-shot `ended`.
+        stale = vec.pending
+        key, k_act = prng.split(key, 2)
+        with profiling.span('policy'):
+          out = policy(obs)
+          action = prng.categorical(k_act, out.logits, mine)
+          logp = torch.log_softmax(out.logits, -1)[rows, action]
+        if grouped:
+          vec, env_out, stepped = vec_step(
+              vec, action.to(torch.int32), env_cfg, k * cfg.reset_batch,
+              reset_every=k, balance=(t % k == k - 1), mesh=self.mesh)
+        else:
+          vec, env_out, stepped = vec_step(vec, action.to(torch.int32),
+                                           env_cfg, cfg.reset_batch,
+                                           mesh=self.mesh)
+        traj.obs[t] = obs
+        traj.action[t] = action
+        traj.logp[t] = logp
+        traj.value[t] = out.value
+        if env_cfg.reward:
+          traj.reward[t] = torch.where(stale, 0.0, env_out.reward)
+        else:
+          traj.reward[t] = 0.0
+        traj.done[t] = env_out.done
+        traj.ended[t] = env_out.ended
+        traj.raw_reward[t] = env_out.reward
+        traj.achievements[t] = stepped.player.achievements
+        obs = self.core.observe_batch(vec.env)
+      last_value = policy(obs).value
+      ts = dataclasses.replace(ts, vec=vec, obs=obs, key=key,
+                               env_steps=ts.env_steps + t_len * cfg.num_envs)
+      return ts, traj, last_value
 
   # -- GAE -----------------------------------------------------------------
 
@@ -342,38 +345,39 @@ class PPO:
     time-axis mode gathers T/M rollout rows per minibatch and flattens them
     time-major.
     """
-    cfg = self.cfg
-    time_mb = bool(cfg.time_minibatch)
-    adv, ret = self._gae(traj, last_value)
-    data = (traj.obs, traj.action, traj.logp, adv, ret)
-    if not time_mb:
-      data = tuple(x.reshape((-1,) + x.shape[2:]) for x in data)
-    key, shuffle, epochs = self._minibatch_indices(ts.key)
-    if shuffle is not None:
-      # One whole-batch gather; the epochs sweep contiguous slices of the
-      # shuffled copy.
-      data = tuple(x[shuffle] for x in data)
-    sums, steps = None, 0
-    for minibatches in epochs:
-      for idx in minibatches:
-        mb = tuple(x[idx] for x in data)
-        if time_mb:
-          mb = tuple(x.reshape((-1,) + x.shape[2:]) for x in mb)
-        metrics = self._sgd_step(ts, mb)
-        sums = metrics if sums is None else {
-            name: sums[name] + v for name, v in metrics.items()}
-        steps += 1
-    # The ranks' shares summed once an update (the mean over minibatches
-    # is linear): one all-reduce of the float metrics, one of the count.
-    names = list(sums) + ['reward_per_step']
-    total = psum_stats(torch.stack(
-        [sums[name] / steps for name in sums]
-        + [traj.reward.sum() / (cfg.rollout_len * cfg.num_envs)]), self.mesh)
-    metrics = dict(zip(names, total))
-    metrics['episodes_done'] = psum_stats(traj.ended.sum(), self.mesh)
-    ts = dataclasses.replace(ts, key=key, update=ts.update + 1)
-    ts, stats = self._episode_stats(ts, traj)
-    return ts, metrics, stats
+    with profiling.span('learn'):
+      cfg = self.cfg
+      time_mb = bool(cfg.time_minibatch)
+      adv, ret = self._gae(traj, last_value)
+      data = (traj.obs, traj.action, traj.logp, adv, ret)
+      if not time_mb:
+        data = tuple(x.reshape((-1,) + x.shape[2:]) for x in data)
+      key, shuffle, epochs = self._minibatch_indices(ts.key)
+      if shuffle is not None:
+        # One whole-batch gather; the epochs sweep contiguous slices of the
+        # shuffled copy.
+        data = tuple(x[shuffle] for x in data)
+      sums, steps = None, 0
+      for minibatches in epochs:
+        for idx in minibatches:
+          mb = tuple(x[idx] for x in data)
+          if time_mb:
+            mb = tuple(x.reshape((-1,) + x.shape[2:]) for x in mb)
+          metrics = self._sgd_step(ts, mb)
+          sums = metrics if sums is None else {
+              name: sums[name] + v for name, v in metrics.items()}
+          steps += 1
+      # The ranks' shares summed once an update (the mean over minibatches
+      # is linear): one all-reduce of the float metrics, one of the count.
+      names = list(sums) + ['reward_per_step']
+      total = psum_stats(torch.stack(
+          [sums[name] / steps for name in sums]
+          + [traj.reward.sum() / (cfg.rollout_len * cfg.num_envs)]), self.mesh)
+      metrics = dict(zip(names, total))
+      metrics['episodes_done'] = psum_stats(traj.ended.sum(), self.mesh)
+      ts = dataclasses.replace(ts, key=key, update=ts.update + 1)
+      ts, stats = self._episode_stats(ts, traj)
+      return ts, metrics, stats
 
   @torch.no_grad()
   def _episode_stats(self, ts: PPOState, traj: Transition):

@@ -12,6 +12,7 @@ versions of the kernels on the CPU.
 
 import argparse
 import contextlib
+import sys
 import time
 
 import numpy as np
@@ -32,7 +33,8 @@ def main(argv=None):
   parser.add_argument('--envs', type=int, default=0,
                       help='if >0, run the batched VecEnv instead')
   parser.add_argument('--profile', type=str, default=None,
-                      help='write a torch.profiler trace to this directory')
+                      help='write a torch.profiler trace to this directory '
+                           'and the program\'s spans and counters to stderr')
   parser.add_argument('--device', type=str, default='cuda')
   args = parser.parse_args(argv)
 
@@ -62,8 +64,10 @@ def main(argv=None):
     rng = np.random.default_rng(args.seed)
     profiler = contextlib.nullcontext()
     if args.profile:
-      from crafter_tpu_torch.utils.profiling import trace
-      profiler = trace(args.profile)
+      from crafter_tpu_torch.utils import profiling
+      profiler = profiling.trace(args.profile)
+      collector = profiling.Collector(args.device)
+      profiling.set_sink(collector)
     start = time.time()
     steps = 0
     with profiler:
@@ -74,6 +78,9 @@ def main(argv=None):
     duration = time.time() - start
     print(f'Step time: {1e3 * duration / steps:.4f}ms '
           f'({int(steps / duration)} env-steps/s)')
+    if args.profile:
+      profiling.set_sink(None)
+      print(collector.report(), file=sys.stderr)
     return
 
   env = crafter_tpu_torch.Env(

@@ -1,2 +1,2 @@
-from .profiling import (Timer, card_line, launches, tool_device, trace,
-                        zero_launches)
+from .profiling import (Collector, card_line, count, launches, set_sink,
+                        span, tool_device, trace, zero_launches)

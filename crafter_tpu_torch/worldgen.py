@@ -31,6 +31,7 @@ from . import state as state_lib
 from .config import EnvConfig
 from .ops import noise, noise_cuda
 from .ops.fma import fma32, sigmoid32
+from .utils import profiling
 
 # (x scale numerator, x divisor, y numerator, y divisor, z) per channel
 # (crafter_tpu/worldgen.py:44-58): point = (num_x * x / div_x, num_y * y /
@@ -142,116 +143,117 @@ def noise_inputs(keys: torch.Tensor, cfg: EnvConfig):
 
 def generate_world(keys: torch.Tensor, cfg: EnvConfig) -> state_lib.State:
   """Fresh worlds for keys (R, 2): terrain, seeded mobs, player at center."""
-  w, h = cfg.area
-  cx, cy = cfg.center
-  r = keys.shape[0]
-  dev = keys.device
-  tables = rules.TABLES
+  with profiling.span('generate_world'):
+    w, h = cfg.area
+    cx, cy = cfg.center
+    r = keys.shape[0]
+    dev = keys.device
+    tables = rules.TABLES
 
-  sub = prng.split(keys, 3)
-  k_mat, k_obj = sub[:, 1], sub[:, 2]
-  compat = cfg.noise_mode == 'compat'
-  if compat:
-    n, water_n, mountain_n = _compat_channels(keys, cfg)
-  else:
-    if cfg.noise_mode == 'fast':
-      n = noise.noise2_fast(*noise_inputs(keys, cfg))
+    sub = prng.split(keys, 3)
+    k_mat, k_obj = sub[:, 1], sub[:, 2]
+    compat = cfg.noise_mode == 'compat'
+    if compat:
+      n, water_n, mountain_n = _compat_channels(keys, cfg)
     else:
-      # The shared form: the channels' points once, a seed a world and
-      # channel.
-      n = noise_cuda.noise2(
-          channel_points(cfg, dev).reshape(len(CHANNELS), w * h, 2),
-          noise_seeds(keys))
-    n = n.reshape(r, len(CHANNELS), w, h)
-    water_n = fma32(0.15, n[:, 2], n[:, 1])
-    mountain_n = fma32(0.3, n[:, 4], n[:, 3]) * _recip(1.3)
+      if cfg.noise_mode == 'fast':
+        n = noise.noise2_fast(*noise_inputs(keys, cfg))
+      else:
+        # The shared form: the channels' points once, a seed a world and
+        # channel.
+        n = noise_cuda.noise2(
+            channel_points(cfg, dev).reshape(len(CHANNELS), w * h, 2),
+            noise_seeds(keys))
+      n = n.reshape(r, len(CHANNELS), w, h)
+      water_n = fma32(0.15, n[:, 2], n[:, 1])
+      mountain_n = fma32(0.3, n[:, 4], n[:, 3]) * _recip(1.3)
 
-  # --- material pass (worldgen.py:21-61) -------------------------------
-  xs = torch.arange(w, device=dev)[:, None]
-  ys = torch.arange(h, device=dev)[None, :]
-  # float64 sqrt of an integer, rounded: the correctly rounded float32 on
-  # any device.
-  dist = torch.sqrt(((xs - cx) ** 2 + (ys - cy) ** 2).to(torch.float64)).to(
-      torch.float32)
-  start = sigmoid32(fma32(2.0, n[:, 0], 4.0 - dist))
-  water = fma32(-2.0, start, water_n + 0.1)
-  if compat:  # XLA fuses the 1/1.3 into the start term there
-    mountain = fma32(mountain_n, _recip(1.3), -4.0 * start)
-  else:
-    mountain = mountain_n - 4.0 * start
-  mountain = fma32(-0.3, water, mountain)
+    # --- material pass (worldgen.py:21-61) -------------------------------
+    xs = torch.arange(w, device=dev)[:, None]
+    ys = torch.arange(h, device=dev)[None, :]
+    # float64 sqrt of an integer, rounded: the correctly rounded float32 on
+    # any device.
+    dist = torch.sqrt(((xs - cx) ** 2 + (ys - cy) ** 2).to(torch.float64)).to(
+        torch.float32)
+    start = sigmoid32(fma32(2.0, n[:, 0], 4.0 - dist))
+    water = fma32(-2.0, start, water_n + 0.1)
+    if compat:  # XLA fuses the 1/1.3 into the start term there
+      mountain = fma32(mountain_n, _recip(1.3), -4.0 * start)
+    else:
+      mountain = mountain_n - 4.0 * start
+    mountain = fma32(-0.3, water, mountain)
 
-  u = prng.uniform(k_mat, (4, w, h))
-  is_start = start > 0.5
-  in_mtn = ~is_start & (mountain > 0.15)
-  cave = in_mtn & (n[:, 5] > 0.15) & (mountain > 0.3)
-  htun = in_mtn & ~cave & (n[:, 6] > 0.4)
-  vtun = in_mtn & ~cave & ~htun & (n[:, 7] > 0.4)
-  taken = cave | htun | vtun
-  coal = in_mtn & ~taken & (n[:, 8] > 0) & (u[:, 0] > 0.85)
-  taken = taken | coal
-  iron = in_mtn & ~taken & (n[:, 9] > 0.4) & (u[:, 1] > 0.75)
-  taken = taken | iron
-  diamond = in_mtn & ~taken & (mountain > 0.18) & (u[:, 2] > 0.994)
-  taken = taken | diamond
-  lava = in_mtn & ~taken & (mountain > 0.3) & (n[:, 10] > 0.35)
-  stone = in_mtn & ~taken & ~lava
-  lowland = ~is_start & ~in_mtn
-  sand = lowland & (0.25 < water) & (water <= 0.35) & (n[:, 11] > -0.2)
-  watr = lowland & ~sand & (water > 0.3)
-  grassland = lowland & ~sand & ~watr
-  tree = grassland & (n[:, 12] > 0) & (u[:, 3] > 0.8)
+    u = prng.uniform(k_mat, (4, w, h))
+    is_start = start > 0.5
+    in_mtn = ~is_start & (mountain > 0.15)
+    cave = in_mtn & (n[:, 5] > 0.15) & (mountain > 0.3)
+    htun = in_mtn & ~cave & (n[:, 6] > 0.4)
+    vtun = in_mtn & ~cave & ~htun & (n[:, 7] > 0.4)
+    taken = cave | htun | vtun
+    coal = in_mtn & ~taken & (n[:, 8] > 0) & (u[:, 0] > 0.85)
+    taken = taken | coal
+    iron = in_mtn & ~taken & (n[:, 9] > 0.4) & (u[:, 1] > 0.75)
+    taken = taken | iron
+    diamond = in_mtn & ~taken & (mountain > 0.18) & (u[:, 2] > 0.994)
+    taken = taken | diamond
+    lava = in_mtn & ~taken & (mountain > 0.3) & (n[:, 10] > 0.35)
+    stone = in_mtn & ~taken & ~lava
+    lowland = ~is_start & ~in_mtn
+    sand = lowland & (0.25 < water) & (water <= 0.35) & (n[:, 11] > -0.2)
+    watr = lowland & ~sand & (water > 0.3)
+    grassland = lowland & ~sand & ~watr
+    tree = grassland & (n[:, 12] > 0) & (u[:, 3] > 0.8)
 
-  mat = torch.full((r, w, h), rules.MAT_GRASS, dtype=torch.uint8,
-                   device=dev)
-  for mask, mid in [
-      (cave | htun | vtun, rules.MAT_PATH), (coal, rules.MAT_COAL),
-      (iron, rules.MAT_IRON), (diamond, rules.MAT_DIAMOND),
-      (lava, rules.MAT_LAVA), (stone, rules.MAT_STONE),
-      (sand, rules.MAT_SAND), (watr, rules.MAT_WATER),
-      (tree, rules.MAT_TREE)]:
-    mat = torch.where(mask, mid, mat)
-  tunnels = htun | vtun
+    mat = torch.full((r, w, h), rules.MAT_GRASS, dtype=torch.uint8,
+                     device=dev)
+    for mask, mid in [
+        (cave | htun | vtun, rules.MAT_PATH), (coal, rules.MAT_COAL),
+        (iron, rules.MAT_IRON), (diamond, rules.MAT_DIAMOND),
+        (lava, rules.MAT_LAVA), (stone, rules.MAT_STONE),
+        (sand, rules.MAT_SAND), (watr, rules.MAT_WATER),
+        (tree, rules.MAT_TREE)]:
+      mat = torch.where(mask, mid, mat)
+    tunnels = htun | vtun
 
-  # --- object pass (worldgen.py:64-76) ---------------------------------
-  uo = prng.uniform(k_obj, (3, w, h))
-  walkable = _mat_in(mat, tables.walkable_mob)
-  cow = (walkable & (dist > 3) & (mat == rules.MAT_GRASS)
-         & (uo[:, 0] > 0.985))
-  zombie = walkable & ~cow & (dist > 10) & (uo[:, 1] > 0.993)
-  skeleton = (walkable & ~cow & ~zombie & (mat == rules.MAT_PATH)
-              & tunnels & (uo[:, 2] > 0.95))
-  etype = torch.where(
-      cow, rules.E_COW,
-      torch.where(zombie, rules.E_ZOMBIE,
-                  torch.where(skeleton, rules.E_SKELETON, rules.E_NONE)))
-  etype[:, cx, cy] = rules.E_PLAYER
-  health = torch.where(
-      etype == rules.E_COW, 3,
-      torch.where(etype == rules.E_ZOMBIE, 5,
-                  torch.where(etype == rules.E_SKELETON, 3, 0)))
-  c = w * h
-  ent = state_lib.EntMaps(
-      etype=etype.to(torch.uint8).reshape(r, c),
-      health=health.to(torch.uint8).reshape(r, c),
-      aux=torch.zeros((r, c), dtype=torch.int16, device=dev),
-      facing=torch.zeros((r, c), dtype=torch.uint8, device=dev))
+    # --- object pass (worldgen.py:64-76) ---------------------------------
+    uo = prng.uniform(k_obj, (3, w, h))
+    walkable = _mat_in(mat, tables.walkable_mob)
+    cow = (walkable & (dist > 3) & (mat == rules.MAT_GRASS)
+           & (uo[:, 0] > 0.985))
+    zombie = walkable & ~cow & (dist > 10) & (uo[:, 1] > 0.993)
+    skeleton = (walkable & ~cow & ~zombie & (mat == rules.MAT_PATH)
+                & tunnels & (uo[:, 2] > 0.95))
+    etype = torch.where(
+        cow, rules.E_COW,
+        torch.where(zombie, rules.E_ZOMBIE,
+                    torch.where(skeleton, rules.E_SKELETON, rules.E_NONE)))
+    etype[:, cx, cy] = rules.E_PLAYER
+    health = torch.where(
+        etype == rules.E_COW, 3,
+        torch.where(etype == rules.E_ZOMBIE, 5,
+                    torch.where(etype == rules.E_SKELETON, 3, 0)))
+    c = w * h
+    ent = state_lib.EntMaps(
+        etype=etype.to(torch.uint8).reshape(r, c),
+        health=health.to(torch.uint8).reshape(r, c),
+        aux=torch.zeros((r, c), dtype=torch.int16, device=dev),
+        facing=torch.zeros((r, c), dtype=torch.uint8, device=dev))
 
-  # Chunks that start with an object in them (engine.py:57).
-  (csx, csy), (ncx, ncy) = cfg.chunk_size, cfg.n_chunks
-  padded = torch.zeros((r, ncx * csx, ncy * csy), dtype=torch.bool,
-                       device=dev)
-  padded[:, :w, :h] = etype > 0
-  chunk_touched = padded.reshape(r, ncx, csx, ncy, csy).any(4).any(2)
+    # Chunks that start with an object in them (engine.py:57).
+    (csx, csy), (ncx, ncy) = cfg.chunk_size, cfg.n_chunks
+    padded = torch.zeros((r, ncx * csx, ncy * csy), dtype=torch.bool,
+                         device=dev)
+    padded[:, :w, :h] = etype > 0
+    chunk_touched = padded.reshape(r, ncx, csx, ncy, csy).any(4).any(2)
 
-  i32 = dict(dtype=torch.int32, device=dev)
-  return state_lib.State(
-      mat_map=mat.reshape(r, c), ent=ent,
-      player=state_lib.init_player(cfg, r, dev),
-      step=torch.zeros((r,), **i32),
-      key=prng.fold_in(keys, 0x5eed),
-      unlocked=torch.zeros((r, rules.N_ACHIEVEMENTS), dtype=torch.bool,
-                           device=dev),
-      env_last_health=torch.full(
-          (r,), int(tables.item_initial[rules.ITEM_HEALTH]), **i32),
-      chunk_touched=chunk_touched)
+    i32 = dict(dtype=torch.int32, device=dev)
+    return state_lib.State(
+        mat_map=mat.reshape(r, c), ent=ent,
+        player=state_lib.init_player(cfg, r, dev),
+        step=torch.zeros((r,), **i32),
+        key=prng.fold_in(keys, 0x5eed),
+        unlocked=torch.zeros((r, rules.N_ACHIEVEMENTS), dtype=torch.bool,
+                             device=dev),
+        env_last_health=torch.full(
+            (r,), int(tables.item_initial[rules.ITEM_HEALTH]), **i32),
+        chunk_touched=chunk_touched)

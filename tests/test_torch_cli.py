@@ -76,10 +76,13 @@ def test_run_random_single_env_record_and_health(tmp_path, capsys,
 def test_run_random_envs_and_profile(tmp_path, capsys):
   run_random.main(['--device', 'cpu', '--envs', '8', '--steps', '24',
                    '--seed', '1', '--profile', str(tmp_path / 'trace')])
-  out = capsys.readouterr().out
+  captured = capsys.readouterr()
+  out = captured.out
   assert re.search(r'^Batched reset time: [\d.]+ms \(8 envs\)$', out, re.M)
   assert re.search(r'^Step time: [\d.]+ms \(\d+ env-steps/s\)$', out, re.M)
   assert (tmp_path / 'trace' / 'trace.json').stat().st_size > 0
+  assert 'crafter.reset_pass' in (tmp_path / 'trace' / 'trace.json').read_text()
+  assert re.search(r'^reset_pass +3 calls', captured.err, re.M)
 
 
 def test_run_terrain_png_equals_jax_cli(tmp_path, capsys, monkeypatch):

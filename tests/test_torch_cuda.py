@@ -660,6 +660,66 @@ def test_env_on_card_equals_cpu(dev):
   assert all(b > a for a, b in zip(launches, now)), (launches, now)
 
 
+def test_reset_pass_spans_on_card(dev):
+  """The program's spans and counters on the card: ``worlds_made`` is
+  ``min(reset_batch, n)`` on every pass whatever finished, ``envs_reset``
+  adds up to the episodes started, and a traced group with a sink set runs
+  as many device operations as without one (the profiler's device copies
+  of the ``crafter.`` ranges are annotations, not operations)."""
+  from crafter_tpu_torch.utils import profiling
+  cfg = ct.EnvConfig(length=25)      # no env finishes in the first groups
+  n, batch = 64, 16
+  vs = ct.vec_reset(ct.home_keys(5, n, dev), cfg)
+  gen = torch.Generator(device=dev)
+  gen.manual_seed(3)
+  acts = [torch.randint(0, 17, (10, n), generator=gen, device=dev)
+          for _ in range(4)]
+  ct.vec_step_group(vs, acts[0], cfg, batch)        # builds the kernels
+
+  def traced(sink):
+    profiling.set_sink(sink)
+    try:
+      with torch.profiler.profile(activities=[
+          torch.profiler.ProfilerActivity.CPU,
+          torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = ct.vec_step_group(vs, acts[0], cfg, batch)
+        torch.cuda.synchronize()
+    finally:
+      profiling.set_sink(None)
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    ops = sum(1 for e in events if e.device_type == cuda
+              and not getattr(e, 'is_user_annotation', False))
+    return out, ops, {e.name for e in events}
+
+  plain, ops, names = traced(None)
+  spanned, ops_spanned, names_spanned = traced(profiling.Collector(dev))
+  for a, b in zip(plain, spanned):
+    _assert_equal(a, b)
+  assert ops_spanned == ops > 0
+  assert not any(name.startswith('crafter.') for name in names)
+  assert {'crafter.reset_pass', 'crafter.generate_world'} <= names_spanned
+
+  counts = []
+
+  class Counts(profiling.Collector):
+    def count(self, name, value, limit=None):
+      counts.append((name, value, limit))
+
+  profiling.set_sink(Counts(dev))
+  try:
+    start = int(vs.episode.sum())
+    for a in acts:
+      vs, _ = ct.vec_step_group(vs, a, cfg, batch)
+  finally:
+    profiling.set_sink(None)
+  made = [v for name, v, _ in counts if name == 'worlds_made']
+  assert made == [min(batch, n)] * len(acts)
+  reset = [(v, lim) for name, v, lim in counts if name == 'envs_reset']
+  assert profiling.counted(reset) == int(vs.episode.sum()) - start > 0
+  assert min(int(v) for v, _ in reset) < batch
+
+
 def test_train_step_on_card(dev):
   cfg = ct.PPOConfig(num_envs=16, rollout_len=10, epochs=2, minibatches=2,
                      reset_batch=4)

@@ -1,8 +1,8 @@
 """The port's copies of ``recorder`` and ``analysis`` against the JAX
 package's modules on the same arrays: the same ``stats.jsonl`` lines and the
 same scores.  Tolerance: none (the same numpy code on the same inputs).
-And the profiling helpers: a trace of CPU work is written, the timer adds
-up its sections.
+And the profiling helpers: a trace of CPU work is written, the collector
+adds up the spans and counts it is handed and reports them.
 """
 
 import json
@@ -16,7 +16,7 @@ from crafter_tpu import analysis as janalysis
 from crafter_tpu import recorder as jrecorder
 from crafter_tpu import rules as jrules
 from crafter_tpu_torch import analysis, recorder, rules
-from crafter_tpu_torch.utils import Timer, trace
+from crafter_tpu_torch.utils import profiling, trace
 from one_thread import one_torch_thread  # noqa: F401
 
 
@@ -126,11 +126,26 @@ def test_profiling_helpers(tmp_path):
   events = json.loads((tmp_path / 'prof' / 'trace.json').read_text())
   assert events['traceEvents']
   assert any('mm' in e.key for e in prof.key_averages())
-  timer = Timer()
-  for _ in range(2):
-    with timer.section('sleep'):
-      time.sleep(0.01)
-  with timer.section('nothing'):
-    pass
-  assert timer.sections['sleep'] >= 0.02 > timer.sections['nothing']
-  assert timer.report().splitlines()[0].startswith('sleep')
+  collector = profiling.Collector('cpu')
+  profiling.set_sink(collector)
+  try:
+    for _ in range(2):
+      with profiling.span('sleep'):
+        time.sleep(0.01)
+        with profiling.span('nothing'):
+          pass
+    profiling.count('rows', 3)
+    profiling.count('rows', 5, 4)
+    profiling.count('rows', torch.tensor(7), torch.tensor(-1))
+    profiling.count('made', torch.tensor(2))
+  finally:
+    profiling.set_sink(None)
+  calls, host_ms, device_ms = collector.spans['sleep']
+  assert calls == 2 and host_ms >= 20 and device_ms >= host_ms
+  assert collector.spans['nothing'][0] == 2
+  assert collector.spans['nothing'][1] < host_ms
+  report = collector.report().splitlines()
+  assert [line.split()[0] for line in report] == ['sleep', 'nothing',
+                                                  'made', 'rows']
+  assert report[2].split() == ['made', '2'] and report[3].split() == [
+      'rows', '7']
