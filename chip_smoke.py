@@ -9,7 +9,8 @@ Run from the repository root on a machine with an NVIDIA H100:
    SM and shared memory a block of the group and tick kernels at 64x64 and
    at 48x48, of the balance kernel at 64x64 with 12x12 and 5x7 chunks, and
    of the render kernel's two instantiations at 64x64 and of its global one
-   at 512x512 (the occupancy calculator).
+   at 512x512, and of the threefry kernel's output modes (the occupancy
+   calculator).
 2. Holds each kernel against its plain PyTorch twin on the card, on the
    same inputs at main-path shapes: the group tick (without and with render
    snapshots), the tick and the balance at 4096 envs (states reached by
@@ -31,9 +32,12 @@ Run from the repository root on a machine with an NVIDIA H100:
    global memory), on 4096 frames (the per-tick paths' batch), with a
    share of the frames at night, a share sleeping and some players at the
    map's edge, and at 512x512 (the global instantiation), and the daylight
-   kernel on those frames' steps against its plain form; the 3-D noise on
-   the 3-D form of that reset pass's points
-   (each channel's z as the third coordinate) and the roll micro-bench
+   kernel on those frames' steps against its plain form; the threefry
+   kernel on the draws of a reset pass (fold_in by int32 data and by an
+   int, the splits, randint's bit draws, both uniform planes) at 320 and
+   5,120 keys against its int64 twin run on the card, one launch a draw;
+   the 3-D noise on the 3-D form of that reset pass's points (each
+   channel's z as the third coordinate) and the roll micro-bench
    kernel on (40960, 4096) int32 rows, all three kinds at 10 and 40 stages
    (each kind's blocks per SM, shared memory a block and ring depth
    printed), its 'roll' kind at 10 stages timed over ROLL_REPEATS repeats by
@@ -163,6 +167,8 @@ TWIN_CHUNK = 4096          # frames per call of the render kernel's twin
 RENDER_BIG = (512, 512)    # a render size whose tables do not fit in shared
 RENDER_BIG_FRAMES = 64     # memory: the kernel's global instantiation
 NOISE_WORLDS = (320, 512, 32)   # reset pass, vec_reset_chunked, per tick
+THREEFRY_WORLDS = (320, 5120)   # keys of the threefry check: the 4096 and
+                                # the 65,536-env reset passes
 TOP_OPS = 8
 NOISE_ATOL = 1e-6          # noise may differ from its twin by at most this
 ROLL_ROWS = 40960          # rows of the roll micro-bench (tools/bench_roll.py)
@@ -445,7 +451,7 @@ def phase7(root, card, need_launches):
   tools = root / 'tools'
   run = lambda name, argv: runpy.run_path(
       str(tools / f'{name}.py'), run_name=name)['main'](argv)
-  env_kernels = ('tick', 'balance', 'noise2')
+  env_kernels = ('tick', 'balance', 'noise2', 'threefry')
   pixel_kernels = env_kernels + ('render_win79', 'daylight')
   rec = {}
   cwd = os.getcwd()
@@ -534,9 +540,11 @@ def phase7(root, card, need_launches):
     # E5: the profile tables.
     rec['e5'] = {}
     for mode, needed in (('tick', env_kernels),
-                         ('group', ('group_tick', 'balance', 'noise2')),
+                         ('group', ('group_tick', 'balance', 'noise2',
+                                    'threefry')),
                          ('render', ('group_tick', 'balance', 'noise2',
-                                     'render_win79', 'daylight'))):
+                                     'threefry', 'render_win79',
+                                     'daylight'))):
       print(f'E5 profile_summary_cuda.py --iters 20 '
             f'{"" if mode == "tick" else "--" + mode} on {card}:', flush=True)
       e5 = run('profile_summary_cuda', [
@@ -636,10 +644,10 @@ def phase8(root, card, need_launches):
   if not (m4['value'] > 0 and m4.get('pixel_value', 0) > 0):
     fail(f'M4: record {m4}')
   need_launches('M4 bench --sizes, state-only', m4['launches']['state_only'],
-                ('group_tick', 'balance', 'noise2'))
+                ('group_tick', 'balance', 'noise2', 'threefry'))
   need_launches('M4 bench --sizes, pixel', m4['launches']['pixel'],
-                ('group_tick', 'balance', 'noise2', 'render_win79',
-                 'daylight'))
+                ('group_tick', 'balance', 'noise2', 'threefry',
+                 'render_win79', 'daylight'))
   rec['m4'] = dict(record=m4, seconds=time.perf_counter() - t0)
   rec['seconds'] = time.perf_counter() - p_start
   print(json.dumps({'measuring_tools': rec}), flush=True)
@@ -665,7 +673,7 @@ def main():
   from crafter_tpu_torch import _build, step as step_lib, step_cuda
   from crafter_tpu_torch import env as env_lib
   from crafter_tpu_torch import render as render_lib
-  from crafter_tpu_torch import render_cuda, worldgen
+  from crafter_tpu_torch import prng_cuda, render_cuda, worldgen
   from crafter_tpu_torch import checkpoint as ckpt_lib
   from crafter_tpu_torch import convert
   from crafter_tpu_torch.ops import noise, noise_cuda, roll_cuda
@@ -712,6 +720,10 @@ def main():
           flush=True)
     if blocks == 0:
       fail(f'the render kernel cannot run at {size}')
+  for mode in ('split', 'bits', 'uniform'):
+    print(f'occupancy: threefry kernel, {mode}: '
+          f'{prng_cuda.occupancy(mode)} blocks of 256 threads per SM',
+          flush=True)
 
   def timed(fn, reps):
     """``(result, ms)``: the median over ``reps`` calls after a warm-up, each
@@ -1061,6 +1073,71 @@ def main():
         f'{torch.equal(light, plain_light)}', flush=True)
   if not torch.equal(light, plain_light):
     fail('the daylight kernel disagrees with daylight_plain')
+
+  # The threefry kernel (no TPU kernel behind it either: XLA fuses
+  # jax.random) against its int64 twin, prng.threefry2x32 run on the card,
+  # on the draws of a reset pass: fold_in by int32 data (some negative) and
+  # by a Python int, split(keys, 3), randint's split and its two bit draws,
+  # and the material and object uniform planes.  Each draw must be one
+  # launch and equal the twin bit for bit.
+  def twin(tkeys, ctr):
+    return ct.prng.threefry2x32(tkeys[..., None, 0], tkeys[..., None, 1],
+                                torch.zeros_like(ctr), ctr)
+
+  pairs = lambda b: torch.stack(b, -1)
+  xor = lambda b: b[0] ^ b[1]
+  unit = lambda b: (((b[0] ^ b[1]) >> 9) | 0x3F800000).to(
+      torch.int32).view(torch.float32) - 1.0
+  ar = lambda n: torch.arange(n, dtype=torch.int64, device=dev)
+  w, h = cfg.area
+  for worlds in THREEFRY_WORLDS:
+    tkeys = ct.prng.fold_in(ct.home_keys(3, worlds, dev), 3)
+    data = torch.arange(worlds, dtype=torch.int32, device=dev) * 40503 \
+        - 2 ** 30
+    sub = ct.prng.split(tkeys, 3)
+    halves = ct.prng.split(sub[:, 0], 2)
+    draws = (
+        ('fold_in, int32 data', lambda: ct.prng.fold_in(tkeys, data),
+         lambda: pairs(twin(tkeys, (data.to(torch.int64) & 0xFFFFFFFF)[
+             :, None]))[:, 0]),
+        ('fold_in, 0x5eed', lambda: ct.prng.fold_in(tkeys, 0x5eed),
+         lambda: pairs(twin(tkeys, ar(1) + 0x5eed))[:, 0]),
+        ('split 3', lambda: ct.prng.split(tkeys, 3),
+         lambda: pairs(twin(tkeys, ar(3)))),
+        ('split 2', lambda: ct.prng.split(sub[:, 0], 2),
+         lambda: pairs(twin(sub[:, 0], ar(2)))),
+        ('bits (), hi', lambda: ct.prng.random_bits(halves[:, 0], ()),
+         lambda: xor(twin(halves[:, 0], ar(1)))[:, 0]),
+        ('bits (), lo', lambda: ct.prng.random_bits(halves[:, 1], ()),
+         lambda: xor(twin(halves[:, 1], ar(1)))[:, 0]),
+        (f'uniform (4, {w}, {h})',
+         lambda: ct.prng.uniform(sub[:, 1], (4, w, h)),
+         lambda: unit(twin(sub[:, 1], ar(4 * w * h))).reshape(
+             worlds, 4, w, h)),
+        (f'uniform (3, {w}, {h})',
+         lambda: ct.prng.uniform(sub[:, 2], (3, w, h)),
+         lambda: unit(twin(sub[:, 2], ar(3 * w * h))).reshape(
+             worlds, 3, w, h)))
+    for what, kernel, plain in draws:
+      before = prng_cuda.draw.launches
+      got_draw = kernel()
+      if prng_cuda.draw.launches != before + 1:
+        fail(f'threefry {what} at {worlds} keys: '
+             f'{prng_cuda.draw.launches - before} launches, not 1')
+      want_draw = plain()
+      if got_draw.dtype != want_draw.dtype \
+          or not torch.equal(got_draw, want_draw):
+        bad = (got_draw != want_draw).sum() if (
+            got_draw.shape == want_draw.shape) else 'shape'
+        fail(f'threefry {what} at {worlds} keys differs from the twin: '
+             f'{got_draw.dtype} {tuple(got_draw.shape)} against '
+             f'{want_draw.dtype} {tuple(want_draw.shape)}, {bad} differ')
+      del got_draw, want_draw
+    print(f'threefry kernel at {worlds} keys: {len(draws)} draws of a '
+          'reset pass, one launch each, == the int64 twin on the card',
+          flush=True)
+  del tkeys, data, sub, halves
+  torch.cuda.empty_cache()
   seeds = render_lib.noise_seed(env.key.repeat(k, 1), steps)
   n_night, n_sleep = int((light < 0.5).sum()), int(sleeping.sum())
   n_edge = int((win79[:, :63] & 15 == render_lib.GRAY_ID).any(1).sum())
@@ -1265,7 +1342,7 @@ def main():
               'balance': step_cuda.balance, 'noise2': noise_cuda.noise2,
               'render_win79': render_cuda.render_win79,
               'noise3': noise_cuda.noise3, 'roll': roll_cuda.roll_stages,
-              'daylight': ct.daylight}
+              'daylight': ct.daylight, 'threefry': prng_cuda.draw}
 
   def zero_counts():
     for fn in wrappers.values():
@@ -1329,7 +1406,7 @@ def main():
   vs = ct.vec_reset_chunked(ct.home_keys(0, N_ENVS, dev), cfg)
   torch.cuda.synchronize()
   reset_s = time.perf_counter() - t0
-  reset_counts = read_counts('reset', ('noise2',))
+  reset_counts = read_counts('reset', ('noise2', 'threefry'))
 
   def run_state(vs, groups):
     """Warm-up group, then ``groups`` timed groups: (vs, ms, episodes)."""
@@ -1376,7 +1453,7 @@ def main():
     zero_counts()
     vs, ms, dones = run_state(vs, MAIN_GROUPS)
     state_counts = add(state_counts, read_counts(
-        'state-only', ('group_tick', 'balance', 'noise2')))
+        'state-only', ('group_tick', 'balance', 'noise2', 'threefry')))
     state_ms.append(ms)
     print(f'state-only path on {card}, turn {turn + 1}: {MAIN_GROUPS} groups '
           f'x {k} ticks x {N_ENVS} envs in {ms:.1f} ms = '
@@ -1386,7 +1463,7 @@ def main():
     zero_counts()
     vs, ms, seen, last = run_pixel(vs, PIXEL_GROUPS)
     counts = read_counts('pixel', ('group_tick', 'balance', 'noise2',
-                                   'render_win79', 'daylight'))
+                                   'threefry', 'render_win79', 'daylight'))
     if not torch.equal(last, core.observe_batch(vs.env)):
       fail('pixel path: the last frame is not the frame of the final state')
     del last
@@ -1442,7 +1519,8 @@ def main():
   torch.cuda.synchronize()
   tick_ms = start.elapsed_time(end)
   tick_counts = read_counts('per-tick', ('tick', 'balance', 'noise2',
-                                        'render_win79', 'daylight'))
+                                        'threefry', 'render_win79',
+                                        'daylight'))
   check_advanced(venv.state, vs0, TICKS, 'per-tick')
   if obs.shape != (N_ENVS, cfg.size[1], cfg.size[0], 3) \
       or info['semantic'].shape != (N_ENVS,) + tuple(cfg.area):
@@ -1501,7 +1579,8 @@ def main():
       fail(f'training path: stats count {int(stats["count"])} + dropped '
            f'{int(stats["dropped"])} != {ended} episodes ended')
   ppo_counts = read_counts('training', ('tick', 'balance', 'noise2',
-                                       'render_win79', 'daylight'))
+                                       'threefry', 'render_win79',
+                                       'daylight'))
   steps_per_update = PPO_ENVS * PPO_ROLLOUT
   if ts.update != 3 or ts.env_steps != 3 * steps_per_update:
     fail(f'training path: update {ts.update}, env_steps {ts.env_steps}')
@@ -1568,7 +1647,8 @@ def main():
   bench = runpy.run_path(str(root / 'bench_cuda.py'), run_name='bench_cuda')
   bench_rec = bench['main']([])
   bench_counts = read_counts('bench', ('group_tick', 'balance', 'noise2',
-                                      'render_win79', 'daylight'))
+                                      'threefry', 'render_win79',
+                                      'daylight'))
   if not (bench_rec['value'] > 0 and bench_rec['pixel_value'] > 0):
     fail(f'bench: {bench_rec}')
   print(f'bench_cuda.py on {card}: launches {bench_counts}', flush=True)
@@ -1653,7 +1733,8 @@ def main():
         fail('Env.reset: the card and the CPU differ after an episode')
   if not (ga.render((512, 512)) == gc.render((512, 512))).all():
     fail('Env.render at 512x512: the card and the CPU differ')
-  env_counts = read_counts('Env', ('tick', 'render_win79', 'noise2'))
+  env_counts = read_counts('Env', ('tick', 'render_win79', 'noise2',
+                                   'threefry'))
   print(f'Env, {ticks} ticks over 2 episodes and a 512x512 render: card == '
         f'CPU, obs, reward, done and info (launches {env_counts})',
         flush=True)
@@ -1776,7 +1857,8 @@ def main():
   torch.cuda.synchronize()
   compat_ms = start.elapsed_time(end) / 3
   check_advanced(cvs, cvs0, 3 * k, 'compat state-only')
-  compat_counts = read_counts('compat state-only', ('group_tick', 'balance'))
+  compat_counts = read_counts('compat state-only', ('group_tick', 'balance',
+                                                    'threefry'))
   if compat_counts['noise2']:
     fail('the compat path launched the 2-D noise kernel')
   print(f'C1 compat state-only path on {card}: 3 groups x {k} ticks x '
@@ -1841,7 +1923,8 @@ def main():
     grid = run_terrain.main(['--filename', str(png_path)])
     terrain_s = time.perf_counter() - t0
     data = png_path.read_bytes()
-  terrain_counts = read_counts('run_terrain', ('render_win79', 'noise2'))
+  terrain_counts = read_counts('run_terrain', ('render_win79', 'noise2',
+                                               'threefry'))
   plain_grid = run_terrain.terrain_grid(4, 4, (64, 64), 1024, 0, 'cpu')
   if grid.shape != (1024, 4096, 3) or not (grid == plain_grid).all():
     fail('run_terrain: the card\'s image differs from the plain twin\'s')
@@ -1911,7 +1994,7 @@ def main():
   text = cli(['--envs', str(N_ENVS), '--steps', str(100 * N_ENVS),
               '--seed', '3'])
   random_envs_counts = read_counts('run_random --envs', (
-      'tick', 'balance', 'noise2', 'render_win79', 'daylight'))
+      'tick', 'balance', 'noise2', 'threefry', 'render_win79', 'daylight'))
   rate = re.search(r'\((\d+) env-steps/s\)', text)
   if not rate or random_envs_counts['tick'] != 100:
     fail(f'run_random --envs: {text!r}, launches {random_envs_counts}')
@@ -1924,7 +2007,8 @@ def main():
                 '--record', tmp])
     recorded = sorted(p.suffix for p in Path(tmp).iterdir())
     stats_rows = (Path(tmp) / 'stats.jsonl').read_text().splitlines()
-  random_env_counts = read_counts('run_random', ('tick', 'render_win79'))
+  random_env_counts = read_counts('run_random', ('tick', 'render_win79',
+                                                 'threefry'))
   if (len(stats_rows) != 2 or recorded.count('.gif') != 2
       or recorded.count('.npz') != 2 or 'Coal count:' not in text):
     fail(f'run_random --record: {recorded}, {len(stats_rows)} stats rows')
@@ -1960,7 +2044,7 @@ def main():
     got.append((vs, outs))
   torch.cuda.synchronize()
   d1_group_counts = read_counts('D1 sharded group', ('group_tick', 'balance',
-                                                     'noise2'))
+                                                     'noise2', 'threefry'))
   for g, ((va, oa), (vb, ob)) in enumerate(zip(got, want)):
     if max_err(va, vb, f'D1 group {g}') or max_err(oa, ob, f'D1 outs {g}'):
       fail(f'D1: the sharded group step differs from vec_step_group at '
@@ -1984,7 +2068,7 @@ def main():
   got += [sharded_env.step(a) for a in v_acts]
   torch.cuda.synchronize()
   d1_env_counts = read_counts('D1 sharded VecEnv', (
-      'tick', 'balance', 'noise2', 'render_win79', 'daylight'))
+      'tick', 'balance', 'noise2', 'threefry', 'render_win79', 'daylight'))
   for t, (a, b) in enumerate(zip(got, want)):
     pairs = zip(a, b) if isinstance(a, tuple) else [(a, b)]
     if any(max_err(x, y, f'D1 VecEnv tick {t}') for x, y in pairs):
@@ -2046,7 +2130,7 @@ def main():
       str(port)]))
   for r, res in enumerate(d2):
     need_launches(f'D2 rank {r}', res['launches'],
-                  ('group_tick', 'balance', 'noise2'))
+                  ('group_tick', 'balance', 'noise2', 'threefry'))
   if d2[0]['diffs']:
     fail(f'D2: the two ranks differ from vec_step_group on each half: '
          f'{d2[0]["diffs"][:10]}')
@@ -2087,10 +2171,10 @@ def main():
           or not rec['value'] > 0):
         fail(f'D3: record {rec}')
   need_launches('D3 one NCCL rank', d3_counts,
-                ('group_tick', 'balance', 'noise2'))
+                ('group_tick', 'balance', 'noise2', 'threefry'))
   for r, rec in enumerate(demo_two):
     need_launches(f'D3 rank {r}', rec['launches'],
-                  ('group_tick', 'balance', 'noise2'))
+                  ('group_tick', 'balance', 'noise2', 'threefry'))
     print(f'D3 demo_64k_cuda.py, two gloo ranks on {card}, rank {r}: '
           f'{json.dumps(rec)}', flush=True)
   d3_s = time.perf_counter() - t0
@@ -2107,7 +2191,7 @@ def main():
       str(port)]))
   for r, res in enumerate(d4):
     need_launches(f'D4 rank {r}', res['launches'], (
-        'tick', 'balance', 'noise2', 'render_win79', 'daylight'))
+        'tick', 'balance', 'noise2', 'threefry', 'render_win79', 'daylight'))
     if res['unchanged'] or res['update'] != 2 \
         or res['env_steps'] != 2 * PPO_ENVS * PPO_ROLLOUT \
         or res['local_envs'] != PPO_ENVS // 2:

@@ -31,7 +31,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_ROOT = Path(__file__).resolve().parent.parent / 'build'
 SOURCES = ('noise2.cu', 'noise3.cu', 'roll.cu', 'group_tick.cu', 'balance.cu',
-           'render.cu', 'daylight.cu')
+           'render.cu', 'daylight.cu', 'threefry.cu')
 FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
          # No implicit multiply-add contraction: the kernels place every
          # fused multiply-add explicitly, to match their plain twins.
@@ -193,6 +193,9 @@ def library(geometry=None) -> ctypes.CDLL:
                             + [vp] * 4 + [i32] * 8 + [f32, vp]),
         'crafter_balance_occupancy': [i32] * 3 + [ctypes.POINTER(i32)] * 2,
         'crafter_daylight': [vp, i64, i32, f32, vp, vp],
+        'crafter_threefry': ([vp, i64, i64, i32, vp] + [i64] * 8
+                             + [i32, vp, vp]),
+        'crafter_threefry_occupancy': [i32, ctypes.POINTER(i32)],
     }
     names = argtypes if geometry is None else VARIANT_FUNCTIONS
     for fn in names:

@@ -23,6 +23,11 @@ indices into the global shape.
 A key is an int64 tensor ``(..., 2)`` holding the two uint32 words; int64
 keeps every intermediate exact without unsigned tensor support, and all
 arithmetic is masked back to 32 bits.
+
+On CUDA keys ``split``, ``fold_in``, ``random_bits`` and ``uniform`` are
+one launch each of the uint32 kernel ``csrc/threefry.cu`` (``prng_cuda``);
+``randint``, ``permutation`` and ``categorical`` build on them.  CPU keys
+take :func:`threefry2x32`, the kernel's plain twin.
 """
 
 from __future__ import annotations
@@ -30,6 +35,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from . import prng_cuda
 
 MASK32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -62,14 +69,37 @@ def key(seed: int, device='cuda') -> torch.Tensor:
 def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
   """``jax.random.fold_in`` over a batch: keys (..., 2), data broadcastable
   to ``keys.shape[:-1]`` (taken as uint32)."""
+  if keys.is_cuda:
+    return _fold_in_cuda(keys, data)
   data = torch.as_tensor(data, device=keys.device).to(torch.int64) & MASK32
   b0, b1 = threefry2x32(keys[..., 0], keys[..., 1],
                         torch.zeros_like(data), data)
   return torch.stack([b0, b1], -1)
 
 
+def _fold_in_cuda(keys: torch.Tensor, data) -> torch.Tensor:
+  if not isinstance(data, torch.Tensor):
+    data = torch.as_tensor(data)
+  if data.ndim == 0 and not data.is_cuda:
+    # One word for every key, passed by value: no copy to the card.
+    return prng_cuda.draw(keys, 'fold_in', prng_cuda.geometry(()),
+                          data=int(data)).reshape(keys.shape)
+  data = data.to(keys.device)
+  if data.dtype not in (torch.int32, torch.int64):
+    data = data.to(torch.int64)
+  # torch.broadcast_tensors, not broadcast_shapes: the latter imports
+  # sympy at its first call, seconds of set-up.
+  _, data = torch.broadcast_tensors(keys[..., 0], data)
+  batch = data.shape
+  return prng_cuda.draw(keys.expand(batch + (2,)), 'fold_in',
+                        prng_cuda.geometry(()), data=data).reshape(batch + (2,))
+
+
 def split(keys: torch.Tensor, num: int) -> torch.Tensor:
   """``jax.random.split(k, num)`` per key: (..., 2) -> (..., num, 2)."""
+  if keys.is_cuda:
+    return prng_cuda.draw(keys, 'split', prng_cuda.geometry((num,))).reshape(
+        keys.shape[:-1] + (num, 2))
   i = torch.arange(num, dtype=torch.int64, device=keys.device)
   b0, b1 = threefry2x32(keys[..., None, 0], keys[..., None, 1],
                         torch.zeros_like(i), i)
@@ -100,16 +130,27 @@ def random_bits(keys: torch.Tensor, shape, rows=None,
   ``jax.random.bits(k, shape, uint32)``; ``rows=(start, total)`` draws
   rows ``[start, start + shape[axis])`` of a draw whose ``axis`` is
   ``total`` long."""
+  if keys.is_cuda:
+    return _draw_cuda(keys, 'bits', shape, rows, axis)
   i = _counters(shape, rows, axis, keys.device)
   b0, b1 = threefry2x32(keys[..., None, 0], keys[..., None, 1],
                         torch.zeros_like(i), i)
   return (b0 ^ b1).reshape(keys.shape[:-1] + tuple(shape))
 
 
+def _draw_cuda(keys: torch.Tensor, mode: str, shape, rows,
+               axis: int) -> torch.Tensor:
+  shape = tuple(int(s) for s in shape)
+  geom = prng_cuda.geometry(shape, rows, axis)
+  return prng_cuda.draw(keys, mode, geom).reshape(keys.shape[:-1] + shape)
+
+
 def uniform(keys: torch.Tensor, shape, rows=None,
             axis: int = 0) -> torch.Tensor:
   """``jax.random.uniform(k, shape)`` (float32 in [0, 1)) per key; ``rows``
   and ``axis`` as for :func:`random_bits`."""
+  if keys.is_cuda:
+    return _draw_cuda(keys, 'uniform', shape, rows, axis)
   # 23 random mantissa bits under the exponent of 1.0, minus 1.0
   # (random.py:_uniform); the word stays below 2**31, so int32 holds it.
   bits = (random_bits(keys, shape, rows, axis) >> 9) | 0x3F800000

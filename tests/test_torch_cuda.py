@@ -777,3 +777,39 @@ def test_one_rank_nccl_sharded_group_step_equals_vec_step_group(dev):
     assert torch.equal(mesh_lib.psum_stats(hp, mesh), hp)
   finally:
     dist.destroy_process_group()
+
+
+def test_reset_pass_draws_through_the_threefry_kernel(dev, monkeypatch):
+  """One reset pass on the card makes its nine draws as launches of the
+  threefry kernel (two fold_in, three split, randint's two bits, two
+  uniform planes), runs no int64 round on the card, and leaves the envs
+  as the CPU's pass does."""
+  from crafter_tpu_torch import env as env_lib
+  from crafter_tpu_torch import prng, prng_cuda
+  cfg = ct.EnvConfig()
+  n, batch = 64, 16
+  card = ct.vec_reset(ct.home_keys(6, n, dev), cfg)
+  cpu = ct.vec_reset(ct.home_keys(6, n, 'cpu'), cfg)
+  done = torch.zeros(n, dtype=torch.bool)
+  done[[1, 5, 6, 30, 63]] = True
+  rounds = []
+  twin = prng.threefry2x32
+
+  def counted(*words):
+    rounds.append(words[0].device.type)
+    return twin(*words)
+
+  monkeypatch.setattr(prng, 'threefry2x32', counted)
+  before = dict(prng_cuda.draw.launches_by_mode)
+  got = env_lib._reset_pass(card.env, done.to(dev), card.episode,
+                            card.home_key, cfg, batch)
+  after = prng_cuda.draw.launches_by_mode
+  assert {m: after[m] - before[m] for m in prng_cuda.MODES} == {
+      'split': 3, 'fold_in': 2, 'bits': 2, 'uniform': 2}
+  assert rounds == []
+  want = env_lib._reset_pass(cpu.env, done, cpu.episode, cpu.home_key, cfg,
+                             batch)
+  assert rounds and set(rounds) == {'cpu'}
+  _assert_equal(got[0], want[0])
+  for a, b in zip(got[1:], want[1:]):
+    assert torch.equal(a.cpu(), b)

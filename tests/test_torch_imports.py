@@ -49,6 +49,7 @@ SCRIPTS = [ROOT / 'chip_smoke.py', ROOT / 'bench_cuda.py',
            ROOT / 'tools' / 'bench_obs_shuffle_cuda.py',
            ROOT / 'tools' / 'bench_unpack_cuda.py',
            ROOT / 'tools' / 'sweep_group_block_cuda.py',
+           ROOT / 'tools' / 'bench_threefry_cuda.py',
            ROOT / 'examples' / 'run_random_torch.py',
            ROOT / 'examples' / 'run_ppo_torch.py',
            ROOT / 'tests' / 'sharding_ranks.py',

@@ -29,6 +29,9 @@
   and prints ``bench.py``'s failure record and exits 1 when every size
   fails (``tests/test_torch_bench.py`` holds the keys without
   ``--sizes``).
+* ``tools/bench_threefry_cuda.py``: its pass makes nine draws whose
+  outputs hold the draws and bytes ``pass_work`` counts; ``--device cpu``
+  at 2 worlds checks the planes against the twin and times the twin alone.
 * Without a card every default run stops.
 """
 
@@ -348,11 +351,46 @@ def test_bench_sizes_all_failing_exits_1(bench, capsys, monkeypatch):
                                  'vs_baseline': 0}
 
 
+@pytest.fixture(scope='module')
+def threefry():
+  return _load('tools/bench_threefry_cuda.py')
+
+
+def test_threefry_pass_work_counts_the_draws(threefry, monkeypatch):
+  r, area = 3, (5, 4)
+  keys = prng.split(prng.key(1, 'cpu'), r)
+  blocks = []
+  twin = prng.threefry2x32
+
+  def counted(*words):
+    out = twin(*words)
+    blocks.append(out[0].numel())
+    return out
+
+  monkeypatch.setattr(prng, 'threefry2x32', counted)
+  threefry['pass_draws'](keys, area)
+  draws, nbytes = threefry['pass_work'](r, area)
+  assert len(blocks) == 9 and sum(blocks) == draws
+  # Every draw writes at least 4 bytes and each of 9 launches reads keys.
+  assert nbytes >= 4 * draws + 9 * 16 * r
+
+
+def test_threefry_bench_on_cpu_times_the_twin(threefry):
+  rec, out = _captured(threefry['main'],
+                       ['--device', 'cpu', '--worlds', '2', '--reps', '1'])
+  row = rec['worlds'][2]
+  assert (row['draws'], row['bytes']) == threefry['pass_work'](2)
+  assert row['twin_ms'] > 0 and row['wrapper_ms'] > 0
+  assert 'kernel_ms' not in row and rec['card'] is None
+  assert out.startswith('2 worlds: ')
+
+
 @pytest.mark.parametrize('tool,argv', [
     ('tools/bench_obs_shuffle_cuda.py', []),
     ('tools/bench_unpack_cuda.py', []),
     ('tools/sweep_group_block_cuda.py', []),
-    ('bench_cuda.py', ['--sizes', '4096', '2048'])])
+    ('bench_cuda.py', ['--sizes', '4096', '2048']),
+    ('tools/bench_threefry_cuda.py', [])])
 def test_default_runs_stop_without_a_card(tool, argv):
   if torch.cuda.is_available():
     pytest.skip('a card is present: the default run would time it')

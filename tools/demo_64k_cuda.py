@@ -35,7 +35,7 @@ def run_size(n, steps, cfg, mesh, backend, card):
   """One batch size: prints and returns its record."""
   import torch
   import torch.distributed as dist
-  from crafter_tpu_torch import prng, step_cuda
+  from crafter_tpu_torch import prng, prng_cuda, step_cuda
   from crafter_tpu_torch.env import home_keys, vec_reset_chunked
   from crafter_tpu_torch.ops import noise_cuda
   from crafter_tpu_torch.parallel.mesh import (make_sharded_group_step,
@@ -53,7 +53,8 @@ def run_size(n, steps, cfg, mesh, backend, card):
   vs = vec_reset_chunked(home_keys(0, n, dev)[rows], cfg)
   gstep = make_sharded_group_step(mesh, cfg, reset_batch)
   counted = (('group_tick', step_cuda.group_tick),
-             ('balance', step_cuda.balance), ('noise2', noise_cuda.noise2))
+             ('balance', step_cuda.balance), ('noise2', noise_cuda.noise2),
+             ('threefry', prng_cuda.draw))
 
   def loop(vs, seed):
     key = prng.key(seed, dev)
