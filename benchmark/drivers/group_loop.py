@@ -6,13 +6,19 @@ Traffic parameters: ``num_envs``, ``reset_batch``, ``actions`` (see
 ``traffic.py``), ``warmup_calls``, and ``check``: ``init_envs`` (envs
 whose first world is compared), ``calls`` groups drawn from the seed
 among the first ``call_span`` of the window, each compared whole (every
-leaf of the state after the group and every result of its ticks)."""
+leaf of the state after the group and every result of its ticks).
+
+``TINY`` holds the sizes at which the CPU tests run a cell of this
+driver; ``fault(name)`` plants one of ``calibrate.FAULTS`` under
+``env.vec_step_group``."""
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-from benchmark import compare, harness, programs
+from benchmark import compare, faults, harness, programs
 from benchmark.reference import env as ref_env
 from benchmark.traffic import ActionStream
 
@@ -84,3 +90,36 @@ class Driver:
     return [('init_mismatch', init, limits['init_mismatch']),
             ('state_mismatch', state_bad, limits['state_mismatch']),
             ('output_mismatch', out_bad, limits['output_mismatch'])]
+
+
+TINY = dict(
+    traffic=dict(num_envs=8, reset_batch=4, warmup_calls=1, trace_calls=2),
+    check=dict(init_envs=3, calls=2, call_span=2))
+
+
+@contextlib.contextmanager
+def fault(name: str):
+  """Plant fault ``name`` under ``env.vec_step_group`` for the block:
+  ``unchanged`` returns the state it was given, ``half_batch`` steps the
+  first half of the envs and keeps the rest as they were, ``altered`` adds
+  1 to one reward."""
+  import crafter_tpu_torch.env as ct_env
+
+  def group(original):
+    def step(vs, actions, cfg, reset_batch):
+      if name == 'half_batch':
+        n = actions.shape[1]
+        part, outs = original(faults.half(vs, n), actions[:, :n // 2], cfg,
+                              reset_batch)
+        return faults.join_half(part, vs, n), outs
+      out_vs, outs = original(vs, actions, cfg, reset_batch)
+      if name == 'unchanged':
+        return vs, outs
+      outs.reward[0, 0] += 1.0
+      return out_vs, outs
+    return step
+  undo = faults.patch(ct_env, 'vec_step_group', group)
+  try:
+    yield
+  finally:
+    undo()

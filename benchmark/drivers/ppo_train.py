@@ -11,13 +11,19 @@ ppo.py``): each update's loss, the first gradient as Adam received it
 change over the first updates, the last two by the worst leaf's norm; and
 the widest gap by which an action the program sampled lies below the best
 Gumbel-perturbed logit of the reference.  Traffic parameters: ``check``
-(``steps`` and the ``limits``)."""
+(``steps`` and the ``limits``).
+
+``TINY`` holds the sizes at which the CPU tests run a cell of this driver
+(``assumed`` replaces the sizes of the configuration of every such cell);
+``fault(name)`` plants one of ``calibrate.FAULTS`` in ``ppo.PPO``."""
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-from benchmark import compare, flops, programs, weights
+from benchmark import compare, faults, flops, programs, weights
 from benchmark.reference import policy as ref_policy
 from benchmark.reference import ppo as ref_ppo
 
@@ -144,3 +150,49 @@ class Driver:
         logp_gap=float((got['first_logp'] - ref.first_logp).abs().mean()),
         action_gap=ref.action_gap)
     return [(name, values[name], limits[name]) for name in names]
+
+
+TINY = dict(
+    traffic=dict(trace_calls=1),
+    check=dict(steps=2),
+    assumed=dict(num_envs=8, rollout_len=4, epochs=1, minibatches=2,
+                 reset_batch=2))
+
+
+@contextlib.contextmanager
+def fault(name: str):
+  """Plant fault ``name`` in ``ppo.PPO`` for the block: ``unchanged`` an
+  SGD step that computes the gradient and never steps the optimizer,
+  ``half_batch`` the loss and its mean over the first half of each
+  minibatch, ``altered`` one sampled action of each tick of the rollout
+  moved to the next action."""
+  import crafter_tpu_torch.ppo as ct_ppo
+  if name == 'unchanged':
+    def no_step(original):
+      def sgd_step(self, ts, mb):
+        ts.opt_state.zero_grad(set_to_none=True)
+        loss, aux = self._loss(ts.params, mb)
+        loss.backward()
+        return dict(loss=loss.detach(),
+                    **{k: v.detach() for k, v in aux.items()})
+      return sgd_step
+    undo = faults.patch(ct_ppo.PPO, '_sgd_step', no_step)
+  elif name == 'half_batch':
+    def half_loss(original):
+      def loss(self, policy, batch):
+        return original(self, policy,
+                        tuple(x[:x.shape[0] // 2] for x in batch))
+      return loss
+    undo = faults.patch(ct_ppo.PPO, '_loss', half_loss)
+  else:
+    def altered(original):
+      def categorical(key, logits, rows=None):
+        action = original(key, logits, rows)
+        action[0] = (action[0] + 1) % logits.shape[-1]
+        return action
+      return categorical
+    undo = faults.patch(ct_ppo.prng, 'categorical', altered)
+  try:
+    yield
+  finally:
+    undo()

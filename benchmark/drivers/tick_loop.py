@@ -7,13 +7,19 @@ Traffic parameters: ``num_envs``, ``reset_batch``, ``actions``,
 ``warmup_calls``, and ``check``: ``init_envs`` (envs whose first world and
 first frame are compared), ``calls`` ticks drawn from the seed among the
 first ``call_span`` of the window, each compared whole (the state after the
-tick, its reward and done, and every frame it returned)."""
+tick, its reward and done, and every frame it returned).
+
+``TINY`` holds the sizes at which the CPU tests run a cell of this
+driver; ``fault(name)`` plants one of ``calibrate.FAULTS`` under
+``env.vec_step``."""
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-from benchmark import compare, harness, programs
+from benchmark import compare, faults, harness, programs
 from benchmark.reference import env as ref_env
 from benchmark.reference import render as ref_render
 from benchmark.traffic import ActionStream
@@ -102,3 +108,36 @@ class Driver:
             ('state_mismatch', state_bad, limits['state_mismatch']),
             ('output_mismatch', out_bad, limits['output_mismatch']),
             ('frame_mismatch', frame_bad, limits['frame_mismatch'])]
+
+
+TINY = dict(
+    traffic=dict(num_envs=8, reset_batch=2, warmup_calls=2, trace_calls=2),
+    check=dict(init_envs=3, calls=2, call_span=2))
+
+
+@contextlib.contextmanager
+def fault(name: str):
+  """Plant fault ``name`` under ``env.vec_step`` for the block:
+  ``unchanged`` returns the state it was given, ``half_batch`` steps the
+  first half of the envs and keeps the rest as they were, ``altered`` adds
+  1 to one reward."""
+  import crafter_tpu_torch.env as ct_env
+
+  def tick(original):
+    def step(vs, actions, cfg, reset_batch, **kw):
+      if name == 'half_batch':
+        n = actions.shape[0]
+        part, out, stepped = original(faults.half(vs, n), actions[:n // 2],
+                                      cfg, max(1, reset_batch // 2), **kw)
+        return faults.join_half(part, vs, n), out, stepped
+      out_vs, out, stepped = original(vs, actions, cfg, reset_batch, **kw)
+      if name == 'unchanged':
+        return vs, out, stepped
+      out.reward[0] += 1.0
+      return out_vs, out, stepped
+    return step
+  undo = faults.patch(ct_env, 'vec_step', tick)
+  try:
+    yield
+  finally:
+    undo()

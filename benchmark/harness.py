@@ -225,6 +225,26 @@ def reduce_trace(prof, window_s: float, top: int = 10) -> dict:
       idle_gaps=[[n[:160], t] for n, t in order(gaps)])
 
 
+def traced(ctx: Context, calls: int) -> dict:
+  """``calls`` further calls under ``torch.profiler``, reduced in memory."""
+  import torch
+  activities = [torch.profiler.ProfilerActivity.CPU]
+  if ctx.device.type == 'cuda':
+    activities.append(torch.profiler.ProfilerActivity.CUDA)
+  ctx.tracing = True
+  with torch.profiler.profile(activities=activities) as prof:
+    ctx.marks.sync()
+    t = time.perf_counter()
+    for _ in range(calls):
+      ctx.driver.call()
+    ctx.marks.sync()
+    window_s = time.perf_counter() - t
+  ctx.tracing = False
+  summary = reduce_trace(prof, window_s)
+  summary['ticks'] = calls * ctx.driver.ticks_per_call
+  return summary
+
+
 def kernel_mean_s(ctx: Context, fragment: str) -> Optional[float]:
   """Mean device seconds of the traced launches whose name holds
   ``fragment``, or None when the trace recorded none."""

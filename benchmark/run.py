@@ -11,7 +11,9 @@ warm-up) runs first; then the window: calls of the cell's entry for
 synchronise, and a synchronise at the end.  ``--trace 0`` reports the
 cell's end-to-end metrics; ``--trace 1`` its per-layer metrics, from the
 same window (spans between CUDA events) and from a ``torch.profiler``
-trace, kept in memory, of ``trace_calls`` further calls.  Then the peak
+trace, kept in memory, of ``trace_calls`` further calls (a reader of an
+end-to-end metric that needs such a trace makes it itself, after the
+window, in a ``--trace 0`` run: ``device_ns_per_step``).  Then the peak
 memory is read, the program's state freed, and the calls that the cell's
 ``drivers/`` module kept are compared with the plain reference
 (``reference/``): each number compared is printed beside its limit, as
@@ -108,7 +110,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     ctx.call_ms = [marks.ms(a, b) for a, b in zip(after, after[1:])]
 
     if trace:
-      ctx.trace = _traced(ctx, int(cell.traffic['trace_calls']))
+      ctx.trace = harness.traced(ctx, int(cell.traffic['trace_calls']))
     values = {}
     for m in metrics:
       value = readers[m['name']].read(ctx)
@@ -144,26 +146,6 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
   rec['phases'] = {'setup_s': ctx.setup_s, 'window_s': ctx.window_s,
                    'check_s': ctx.check_s}
   return rec
-
-
-def _traced(ctx, calls: int) -> dict:
-  """``calls`` further calls under ``torch.profiler``, reduced in memory."""
-  import torch
-  activities = [torch.profiler.ProfilerActivity.CPU]
-  if ctx.device.type == 'cuda':
-    activities.append(torch.profiler.ProfilerActivity.CUDA)
-  ctx.tracing = True
-  with torch.profiler.profile(activities=activities) as prof:
-    ctx.marks.sync()
-    t = time.perf_counter()
-    for _ in range(calls):
-      ctx.driver.call()
-    ctx.marks.sync()
-    window_s = time.perf_counter() - t
-  ctx.tracing = False
-  summary = harness.reduce_trace(prof, window_s)
-  summary['ticks'] = calls * ctx.driver.ticks_per_call
-  return summary
 
 
 def main(argv=None) -> int:

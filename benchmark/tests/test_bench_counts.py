@@ -1,5 +1,7 @@
 """The FLOP count and the byte bounds, against hand-worked shapes."""
 
+import types
+
 import pytest
 import torch
 
@@ -67,3 +69,15 @@ def test_render_bytes_match_hand_count():
             + t.code.numel() + t.vignette.numel()) * 4
   want = frames * (79 * 4 + 4 + 4 + 4) + tables + frames * c * 3
   assert harness.tensor_bytes(win79, light, sleeping, seeds, t, out) == want
+
+
+def test_device_ns_per_step_is_the_busy_union_over_the_steps():
+  """The traced calls' busy seconds over their env-steps; a trace with no
+  device operation (the CPU's) reads nothing."""
+  reader = harness.load_module('metrics', 'device_ns_per_step')
+  trace = {'device_ops': 1280, 'busy_s': 0.075, 'ticks': 200}
+  ctx = types.SimpleNamespace(trace=trace, driver=types.SimpleNamespace(
+      work_per_call=10 * 4096, ticks_per_call=10))
+  assert reader.read(ctx) == pytest.approx(0.075e9 / (20 * 10 * 4096))
+  ctx.trace = dict(trace, device_ops=0)
+  assert reader.read(ctx) is None

@@ -65,7 +65,7 @@ def test_split_trace_drops_device_annotations():
 
 def test_tiny_cells_read_the_program(tiny_root):
   before = harness.reduce_trace
-  rec = run.run_cell('group_state', 2 ** 31 + 5, 2.0, True, device='cpu',
+  rec = run.run_cell('group_state_65k', 2 ** 31 + 5, 2.0, True, device='cpu',
                      root=tiny_root)
   assert rec['correct'], rec['checks']
   values = {k: v['value'] for k, v in rec['metrics'].items()}
@@ -89,7 +89,7 @@ def test_a_program_without_spans_reads_nothing(tiny_root, monkeypatch):
   """Over a program older than its spans the new readers return None and
   the run goes on."""
   monkeypatch.delattr(profiling, 'set_sink')
-  rec = run.run_cell('group_state', 17, 1.0, True, device='cpu',
+  rec = run.run_cell('group_state_65k', 17, 1.0, True, device='cpu',
                      root=tiny_root)
   assert rec['correct'], rec['checks']
   assert not NEW & set(rec['metrics'])
