@@ -30,7 +30,7 @@ from .convert import state_from_numpy, to_numpy
 from .env import (CrafterEnv, Env, GymnasiumEnv, VecEnv, VecState,
                   home_keys, register_gym_envs, vec_reset, vec_reset_chunked,
                   vec_step, vec_step_group, vec_step_group_obs, vec_step_k)
-from .models import CnnPolicy, PolicyOutput
+from .models import CnnPolicy, ImpalaLstmPolicy, PolicyOutput
 from .parity import ParityEnv
 from .ppo import PPO, PPOConfig, PPOState, Transition, make_sharded_train
 from .recorder import (EpisodeRecorder, Recorder, StatsRecorder,
@@ -47,7 +47,8 @@ from .worldgen import generate_world
 
 __all__ = [
     'Atlas', 'CnnPolicy', 'CrafterEnv', 'DEFAULT_CONFIG', 'EntMaps', 'Env',
-    'EnvConfig', 'EpisodeRecorder', 'GroupSnaps', 'GymnasiumEnv', 'PPO',
+    'EnvConfig', 'EpisodeRecorder', 'GroupSnaps', 'GymnasiumEnv',
+    'ImpalaLstmPolicy', 'PPO',
     'PPOConfig', 'PPOState', 'ParityEnv', 'Player', 'PolicyOutput',
     'Recorder', 'State',
     'StatsRecorder', 'StepOut', 'Transition', 'VecEnv', 'VecState',

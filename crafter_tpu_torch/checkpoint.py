@@ -2,8 +2,10 @@
 
 The port's counterpart of ``crafter_tpu/checkpoint.py``.  The entire
 training state checkpoints and restores bit for bit: policy parameters,
-optimizer state, PRNG key, counters and the batched env state (the
-host-side tick too), so a run resumes mid-episode with identical results.
+optimizer state, PRNG key, counters, the batched env state (the host-side
+tick too) and the recurrent policy's carry (its LSTM state and the last
+tick's action, reward and done flag), so a run resumes mid-episode with
+identical results.
 
 A state is a tree of dataclasses, dicts, lists and tuples whose leaves are
 tensors, Python numbers, ``nn.Module``s and optimizers (saved as their

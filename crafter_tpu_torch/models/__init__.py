@@ -1,1 +1,2 @@
 from .cnn import CnnPolicy, PolicyOutput
+from .impala import CoreInputs, ImpalaLstmPolicy, LstmCarry

@@ -11,6 +11,15 @@ transition crosses to the host:
   gradients by their global norm and steps ``torch.optim.Adam``;
 * the policy trunk computes in bfloat16 (``models/cnn.py``).
 
+``PPOConfig.policy`` chooses the policy: NatureCNN (``'cnn'``, the default)
+or the IMPALA ResNet-LSTM (``'impala_lstm'``, ``models/impala.py``).  The
+recurrent policy carries its core's state across ticks and updates in the
+state (``PPOState.carry``), zeroed where an episode starts; the rollout
+stores the state it began with and each tick's core inputs, and the
+learner draws minibatches of whole env sequences (``num_envs /
+minibatches`` envs, reshuffled every epoch) and back-propagates through
+the scan of each.
+
 Where the JAX package scans, this module loops in Python.  The state's PRNG
 key is a threefry key (``prng.py``), split exactly where the JAX package
 splits it, so the minibatch partitions are the JAX package's for the same
@@ -35,7 +44,7 @@ import torch
 from . import prng, rules
 from .config import DEFAULT_CONFIG, EnvConfig
 from .env import CrafterEnv, VecState, home_keys, vec_reset_chunked, vec_step
-from .models import CnnPolicy
+from .models import CnnPolicy, CoreInputs, ImpalaLstmPolicy, LstmCarry
 from .parallel.mesh import Mesh, psum_stats, replicate, shard_batch
 from .utils import profiling
 
@@ -66,8 +75,12 @@ class PPOConfig:
   # Global-mode shuffle cadence.  'update' (default): one whole-batch gather
   # per update; the minibatch partition holds across the epochs and only the
   # visit order is drawn anew per epoch.  'epoch': SB3's reshuffle per epoch,
-  # which gathers every minibatch from the rollout buffers again.
+  # which gathers every minibatch from the rollout buffers again.  The
+  # recurrent policy takes 'epoch' only: whole env sequences, reshuffled
+  # per epoch.
   shuffle_per: str = 'update'
+  # 'cnn' (NatureCNN) or 'impala_lstm' (the IMPALA ResNet-LSTM).
+  policy: str = 'cnn'
 
 
 @dataclasses.dataclass
@@ -83,6 +96,8 @@ class PPOState:
   # stats cross update boundaries without host bookkeeping.
   ep_len: torch.Tensor     # (N,) int32
   ep_ret: torch.Tensor     # (N,) float32
+  # The recurrent policy's carry after the last tick (None for NatureCNN).
+  carry: Optional[LstmCarry] = None
 
 
 @dataclasses.dataclass
@@ -98,6 +113,34 @@ class Transition:
   ended: torch.Tensor        # pulses once on the tick an episode finishes
   raw_reward: torch.Tensor   # info['reward']: what the stats accumulate
   achievements: torch.Tensor  # (T, N, 22) terminal-step counters for stats
+  # The recurrent policy's state before the first tick and its per-tick
+  # inputs (None for NatureCNN).
+  core: Optional[CoreInputs] = None
+
+
+POLICIES = ('cnn', 'impala_lstm')
+
+
+def _no_carry(core, action, reward, done):
+  return None
+
+
+def _next_carry(core, action, reward, done) -> LstmCarry:
+  """The recurrent core's carry after a tick: its state ``core`` and the
+  tick's action, training reward and done flag."""
+  return LstmCarry(h=core[0], c=core[1], action=action, reward=reward,
+                   done=done)
+
+
+def _core_inputs(carry: LstmCarry, traj: Transition) -> CoreInputs:
+  """A rollout's core inputs: the state it began with, and per tick the
+  action, reward and done flag of the tick before (the carry's for the
+  first tick)."""
+  shift = lambda first, x: torch.cat([first[None], x[:-1]])
+  return CoreInputs(h=carry.h, c=carry.c,
+                    prev_action=shift(carry.action, traj.action),
+                    prev_reward=shift(carry.reward, traj.reward),
+                    reset=shift(carry.done, traj.done))
 
 
 class PPO:
@@ -117,6 +160,22 @@ class PPO:
     self.device = torch.device(device)
     self.core = CrafterEnv(env_cfg, self.device)
     self.mesh = mesh or Mesh(None, 0, 1, self.device)
+    if cfg.policy not in POLICIES:
+      raise ValueError(f'policy {cfg.policy!r} is not one of {POLICIES}')
+    # The recurrent policy's branches, chosen here once: how a tick acts
+    # and what it carries to the next.
+    self.recurrent = cfg.policy == 'impala_lstm'
+    if self.recurrent:
+      if cfg.time_minibatch or cfg.shuffle_per != 'epoch':
+        raise ValueError(
+            'the recurrent policy learns on whole env sequences, reshuffled '
+            'per epoch (shuffle_per=\'epoch\'): time_minibatch and the '
+            'sample shuffle shuffle_per=\'update\' would cut them')
+      if self.mesh.size > 1:
+        raise ValueError('the recurrent policy runs on one rank')
+      self._act, self._carry_on = self._act_recurrent, _next_carry
+    else:
+      self._act, self._carry_on = self._act_feedforward, _no_carry
 
   # -- initialization ------------------------------------------------------
 
@@ -127,9 +186,10 @@ class PPO:
     gen = torch.Generator()
     gen.manual_seed(int(k_param[0]) << 31 ^ int(k_param[1]))
     # The frame is (H, W, 3) with size = (W, H).
-    policy = CnnPolicy(n_actions=rules.N_ACTIONS,
-                       input_hw=(self.env_cfg.size[1], self.env_cfg.size[0]),
-                       generator=gen, device=self.device)
+    make = ImpalaLstmPolicy if self.recurrent else CnnPolicy
+    policy = make(n_actions=rules.N_ACTIONS,
+                  input_hw=(self.env_cfg.size[1], self.env_cfg.size[0]),
+                  generator=gen, device=self.device)
     # One generator gives every rank the same policy; the broadcast makes
     # rank 0's the one.
     with torch.no_grad():
@@ -146,7 +206,8 @@ class PPO:
         params=policy, opt_state=opt, vec=vec, obs=obs, key=k_run,
         update=0, env_steps=0,
         ep_len=torch.zeros((n,), dtype=torch.int32, device=self.device),
-        ep_ret=torch.zeros((n,), dtype=torch.float32, device=self.device))
+        ep_ret=torch.zeros((n,), dtype=torch.float32, device=self.device),
+        carry=policy.zero_carry(n, self.device) if self.recurrent else None)
 
   # -- rollout -------------------------------------------------------------
 
@@ -173,7 +234,7 @@ class PPO:
           done=buf((), torch.bool), ended=buf((), torch.bool),
           raw_reward=buf((), torch.float32),
           achievements=buf((rules.N_ACHIEVEMENTS,), torch.int32))
-      vec, obs, key = ts.vec, ts.obs, ts.key
+      vec, obs, key, carry = ts.vec, ts.obs, ts.key, ts.carry
       policy = ts.params
       rows = torch.arange(n, device=dev)
       # This rank's rows of the global draw, as (start, total).
@@ -187,7 +248,7 @@ class PPO:
         stale = vec.pending
         key, k_act = prng.split(key, 2)
         with profiling.span('policy'):
-          out = policy(obs)
+          out, core = self._act(policy, obs, carry)
           action = prng.categorical(k_act, out.logits, mine)
           logp = torch.log_softmax(out.logits, -1)[rows, action]
         if grouped:
@@ -210,11 +271,24 @@ class PPO:
         traj.ended[t] = env_out.ended
         traj.raw_reward[t] = env_out.reward
         traj.achievements[t] = stepped.player.achievements
+        carry = self._carry_on(core, action, traj.reward[t], env_out.done)
         obs = self.core.observe_batch(vec.env)
-      last_value = policy(obs).value
-      ts = dataclasses.replace(ts, vec=vec, obs=obs, key=key,
+      last_value = self._act(policy, obs, carry)[0].value
+      if self.recurrent:
+        traj.core = _core_inputs(ts.carry, traj)
+        if profiling.counting():
+          profiling.count('state_resets', traj.core.reset.sum())
+      ts = dataclasses.replace(ts, vec=vec, obs=obs, key=key, carry=carry,
                                env_steps=ts.env_steps + t_len * cfg.num_envs)
       return ts, traj, last_value
+
+  @staticmethod
+  def _act_feedforward(policy, obs, carry):
+    return policy(obs), None
+
+  @staticmethod
+  def _act_recurrent(policy, obs, carry):
+    return policy.step(obs, carry)
 
   # -- GAE -----------------------------------------------------------------
 
@@ -237,8 +311,15 @@ class PPO:
 
   def _loss(self, policy: CnnPolicy, batch):
     cfg = self.cfg
-    obs, action, logp_old, adv, ret = batch
-    out = policy(obs)
+    obs, action, logp_old, adv, ret = batch[:5]
+    if self.recurrent:
+      # (T, B) sequences through the scan, then the samples flat.
+      out = policy.sequence(obs, batch[5])
+      out = type(out)(*(x.reshape((-1,) + x.shape[2:]) for x in out))
+      action, logp_old, adv, ret = (x.reshape(-1)
+                                    for x in (action, logp_old, adv, ret))
+    else:
+      out = policy(obs)
     logp_all = torch.log_softmax(out.logits, -1)
     logp = logp_all[torch.arange(action.shape[0], device=action.device),
                     action]
@@ -295,7 +376,11 @@ class PPO:
   def _update(self, ts: PPOState):
     """One PPO update: rollout T steps, then E epochs of M minibatches."""
     cfg = self.cfg
-    if cfg.time_minibatch:
+    if self.recurrent:
+      if cfg.num_envs % cfg.minibatches:
+        raise ValueError('num_envs must divide into minibatches (env-axis '
+                         'sequence minibatches)')
+    elif cfg.time_minibatch:
       if cfg.rollout_len % cfg.minibatches:
         raise ValueError('rollout_len must divide into minibatches '
                          '(time-axis minibatching)')
@@ -315,13 +400,14 @@ class PPO:
     ``shuffle`` is the whole-batch permutation applied once before the
     epochs (``shuffle_per='update'``) or None; ``epochs`` is a list, per
     epoch, of one index tensor per minibatch, into the shuffled flat batch,
-    the flat batch or (``time_minibatch``) the rollout's time axis.
+    the flat batch, (``time_minibatch``) the rollout's time axis or (the
+    recurrent policy) the env axis.
     """
     cfg = self.cfg
     time_mb = bool(cfg.time_minibatch)
     batch_n = cfg.rollout_len * cfg.num_envs
     shuffle, epochs = None, []
-    if not time_mb and cfg.shuffle_per == 'update':
+    if not time_mb and not self.recurrent and cfg.shuffle_per == 'update':
       mb_n = batch_n // cfg.minibatches
       key, k_perm = prng.split(key, 2)
       shuffle = prng.permutation(k_perm, batch_n)
@@ -330,7 +416,8 @@ class PPO:
         order = prng.permutation(k_ord, cfg.minibatches).tolist()
         epochs.append([slice(j * mb_n, (j + 1) * mb_n) for j in order])
     else:
-      perm_n = cfg.rollout_len if time_mb else batch_n
+      perm_n = (cfg.num_envs if self.recurrent else
+                cfg.rollout_len if time_mb else batch_n)
       for _ in range(cfg.epochs):
         key, k_perm = prng.split(key, 2)
         perm = prng.permutation(k_perm, perm_n)
@@ -343,14 +430,15 @@ class PPO:
 
     Global mode flattens (T, N) and shuffles all T*N samples (SB3's scheme);
     time-axis mode gathers T/M rollout rows per minibatch and flattens them
-    time-major.
+    time-major; the recurrent policy gathers N/M envs' whole sequences and
+    their core inputs.
     """
     with profiling.span('learn'):
       cfg = self.cfg
       time_mb = bool(cfg.time_minibatch)
       adv, ret = self._gae(traj, last_value)
       data = (traj.obs, traj.action, traj.logp, adv, ret)
-      if not time_mb:
+      if not time_mb and not self.recurrent:
         data = tuple(x.reshape((-1,) + x.shape[2:]) for x in data)
       key, shuffle, epochs = self._minibatch_indices(ts.key)
       if shuffle is not None:
@@ -360,7 +448,10 @@ class PPO:
       sums, steps = None, 0
       for minibatches in epochs:
         for idx in minibatches:
-          mb = tuple(x[idx] for x in data)
+          if self.recurrent:
+            mb = tuple(x[:, idx] for x in data) + (traj.core.envs(idx),)
+          else:
+            mb = tuple(x[idx] for x in data)
           if time_mb:
             mb = tuple(x.reshape((-1,) + x.shape[2:]) for x in mb)
           metrics = self._sgd_step(ts, mb)
@@ -455,6 +546,10 @@ def make_sharded_train(env_cfg: EnvConfig, cfg: PPOConfig, mesh: Mesh,
   """
   if torch.device(device).type != mesh.device.type:
     raise ValueError(f'device {device} is not the mesh\'s {mesh.device}')
+  if cfg.policy != 'cnn':
+    raise ValueError(f'make_sharded_train runs the cnn policy only, not '
+                     f'{cfg.policy!r}: no recurrent path has run across '
+                     'ranks')
   if cfg.time_minibatch is None:
     cfg = dataclasses.replace(cfg, time_minibatch=mesh.size > 1)
   ppo = PPO(env_cfg, cfg, device=mesh.device, mesh=mesh)

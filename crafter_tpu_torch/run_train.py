@@ -1,6 +1,7 @@
 """PPO training CLI: the reference's examples/run_ppo.py on the device.
 
-Trains the CNN policy on the device-resident env batch and records
+Trains a policy (``--policy``: NatureCNN, ``cnn``, or the IMPALA
+ResNet-LSTM, ``impala_lstm``) on the device-resident env batch and records
 ``stats.jsonl`` (through ``VecStatsRecorder``), so the analysis pipeline
 scores the run exactly like any reference logdir:
 
@@ -9,8 +10,10 @@ scores the run exactly like any reference logdir:
     python -c "from crafter_tpu_torch import analysis; print( \\
         analysis.read_stats('logdir/ppo', 'scores', 'crafter_reward', 'ppo'))"
 
-Checkpoints (parameters, optimizer state and the env batch, so training
-resumes mid-episode with identical results) go to ``<outdir>/ckpt``.  Runs
+Checkpoints (parameters, optimizer state, the env batch and the recurrent
+policy's carry, so training resumes mid-episode with identical results) go
+to ``<outdir>/ckpt``.  The recurrent policy learns on minibatches of whole
+env sequences (``--num_envs`` a multiple of the 8 minibatches).  Runs
 on the first CUDA device; ``--device cpu`` runs the plain PyTorch versions
 of the kernels on the CPU, for tests.
 """
@@ -33,6 +36,8 @@ def main(argv=None):
   parser.add_argument('--log_every', type=int, default=5)
   parser.add_argument('--resume', action='store_true')
   parser.add_argument('--device', type=str, default='cuda')
+  parser.add_argument('--policy', choices=('cnn', 'impala_lstm'),
+                      default='cnn')
   args = parser.parse_args(argv)
 
   import torch
@@ -52,7 +57,9 @@ def main(argv=None):
   env_cfg = EnvConfig()
   cfg = PPOConfig(num_envs=args.num_envs, rollout_len=args.rollout,
                   lr=args.lr, ent_coef=args.ent_coef, seed=args.seed,
-                  reset_batch=min(64, args.num_envs))
+                  reset_batch=min(64, args.num_envs), policy=args.policy,
+                  shuffle_per='epoch' if args.policy == 'impala_lstm'
+                  else 'update')
   ppo = PPO(env_cfg, cfg, device=args.device)
   ts = ppo.init(prng.key(args.seed, args.device))
   ckpt = ckpt_lib.Checkpointer(outdir / 'ckpt')

@@ -94,6 +94,12 @@ def count(name: str, value, limit=None) -> None:
     _sink.count(name, value, limit)
 
 
+def counting() -> bool:
+  """Whether a sink is set: a count whose value costs device work is
+  computed only then."""
+  return _sink is not None
+
+
 def counted(pairs) -> int:
   """The sum of ``[(value, limit)]`` as :func:`count` defines it: device
   scalars are brought to the host together, with one synchronise."""

@@ -169,6 +169,9 @@ def _pair(**kw):
 def test_config_fields_match():
   ours = {f.name: f.default for f in dataclasses.fields(ct.PPOConfig)}
   theirs = {f.name: f.default for f in dataclasses.fields(jppo.PPOConfig)}
+  # The port's one field of its own: the choice of policy, NatureCNN (the
+  # JAX package's only one) by default.
+  assert ours.pop('policy') == 'cnn'
   assert ours == theirs
 
 

@@ -191,8 +191,11 @@ def _jax_rollout():
   flax_params = _flax_from_port(policy.state_dict())
   for name, t in policy_from_flax(_np(flax_params)).items():
     assert torch.equal(t, policy.state_dict()[name]), name
+  # The JAX package has NatureCNN only: the port's policy field stays out.
+  fields = dataclasses.asdict(cfg)
+  assert fields.pop('policy') == 'cnn'
   ppo = jppo.PPO(JaxConfig(length=sr.TRAIN_ENV.length),
-                 jppo.PPOConfig(**dataclasses.asdict(cfg)))
+                 jppo.PPOConfig(**fields))
   ppo.model = JaxPolicy(n_actions=jrules.N_ACTIONS, compute_dtype=jnp.float32)
   ts = jax.jit(ppo.init)(jax.random.key(sr.TRAIN_KEY))
   ts = ts.replace(params=flax_params)
