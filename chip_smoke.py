@@ -75,9 +75,12 @@ Run from the repository root on a machine with an NVIDIA H100:
    one stepped without the round trip.
 5. Drives what the port adds beyond the batched paths, each with the
    launch counts set to 0 just before and read just after:
-   C1, the 'compat' worldgen mode (the permutation-table OpenSimplex, plain
-   PyTorch on the card as its JAX counterpart is plain jnp): 320 worlds on
-   the card equal to the CPU's, ``vec_reset_chunked`` of 4096 compat envs,
+   C1, the 'compat' worldgen mode (the permutation-table OpenSimplex, its
+   candidate sum one launch of ``csrc/noise3_perm.cu`` a ``generate_world``
+   call): the kernel against its twin ``noise3_total`` at 320 worlds (bit
+   for bit), timed with the wrapper and alone against its bound (a row of
+   the kernel table); 320 worlds on the card equal to the CPU's, and
+   through the kernel; ``vec_reset_chunked`` of 4096 compat envs,
    the reset pass of 320 worlds timed in compat and in auto mode in turns
    and profiled (device busy, operations a pass), 3 state-only groups on
    the compat worlds (group tick and balance kernels, no 2-D noise), and
@@ -218,6 +221,15 @@ OPS_NOISE_POINT = 170
 # hashes 286 (xor of the three products, mix, shift, xor, mask, modulo 24,
 # index); the gradient dot products 130 and the sum 50.
 OPS_NOISE3_POINT = 800
+# The compat mode's permutation-table noise (csrc/noise3_perm.cu), counted
+# from the algorithm and not from the kernel (an FMA counted as two, a
+# table lookup as one): what is a function of the point alone once a point
+# (the stretch 17; per candidate its lattice cell 3, the squish 4, the
+# offsets 9, the attenuation 7 and its fourth power 2, the table's low
+# bytes 3: 28 x 26), and per (point, world, candidate) what the table
+# decides: three lookups, gy * dy and three FMAs.
+OPS_NOISE3_PERM_POINT = 745
+OPS_NOISE3_PERM_TRIPLE = 10
 OPS_RENDER_TEXEL = 30
 OPS_RENDER_LIGHT = 75
 OPS_RENDER_NOISE = 25
@@ -1342,7 +1354,8 @@ def main():
               'balance': step_cuda.balance, 'noise2': noise_cuda.noise2,
               'render_win79': render_cuda.render_win79,
               'noise3': noise_cuda.noise3, 'roll': roll_cuda.roll_stages,
-              'daylight': ct.daylight, 'threefry': prng_cuda.draw}
+              'daylight': ct.daylight, 'threefry': prng_cuda.draw,
+              'noise3_perm': noise_cuda.noise3_perm}
 
   def zero_counts():
     for fn in wrappers.values():
@@ -1801,13 +1814,42 @@ def main():
     fail('checkpoint: no episode ended after the round trip')
 
   # 5. What the port adds for users beyond the batched paths.
-  # C1. The 'compat' worldgen mode: the permutation-table OpenSimplex runs
-  # as plain PyTorch on the card (its JAX counterpart is plain jnp, with no
-  # TPU kernel behind it), so its worlds must equal the CPU's; then a
-  # reset of 4096 compat worlds and state-only groups on them.
+  # C1. The 'compat' worldgen mode: the permutation-table OpenSimplex's
+  # candidate sum is one launch of its kernel (no TPU kernel behind it: the
+  # JAX package runs it as jnp ops), held to its twin at a reset pass's 320
+  # worlds and timed; the worlds must equal the CPU's; then a reset of 4096
+  # compat worlds and state-only groups on them.
   ccfg = dataclasses.replace(cfg, noise_mode='compat')
   ckeys = ct.prng.fold_in(ct.home_keys(11, RESET_BATCH, dev), 1)
+  cpts = worldgen.channel_points3(ccfg, dev)
+  cperm = noise.perm_from_key(ct.prng.split(ckeys, 3)[:, 0])
+  tk, ms = timed(lambda: noise_cuda.noise3_perm(cpts, cperm), 10)
+  perm_dev_ms = device_ms(lambda: noise_cuda.noise3_perm(cpts, cperm),
+                          'noise3_perm_kernel')
+  tt, plain_ms = timed(lambda: noise.noise3_total(cpts[None], cperm), 2)
+  ndiff = int((tk.view(torch.int32) != tt.view(torch.int32)).sum())
+  err = (tk - tt).abs().max().item()
+  print(f'C1 noise3_perm at {RESET_BATCH} worlds x {cpts.shape[0]} points: '
+        f'{ndiff} of {tk.numel()} values differ from noise3_total in their '
+        f'bits, max |diff| {err}; field in [{float(tk.min()):.3f}, '
+        f'{float(tk.max()):.3f}]; {ms:.3f} ms with the wrapper, device '
+        f'{dev_str(perm_dev_ms)}, the twin {plain_ms:.3f} ms', flush=True)
+  if ndiff or float(tk.abs().max()) < 50:
+    fail('noise3_perm disagrees with noise3_total')
+  triples = tk.numel() * len(noise.CANDIDATES)
+  rows.append(dict(
+      name='noise3_perm', source='crafter_tpu_torch/csrc/noise3_perm.cu',
+      replaces='none (crafter_tpu/ops/noise.py:noise3, jnp ops)',
+      max_abs_err=err, ms=ms, plain_ms=plain_ms,
+      bytes=cpts.numel() * 4 + cperm.numel() * 4 + tk.numel() * 4,
+      ops=cpts.shape[0] * OPS_NOISE3_PERM_POINT
+      + triples * OPS_NOISE3_PERM_TRIPLE,
+      library_ms=None, device_ms=perm_dev_ms))
+  del cpts, cperm, tk, tt
+  before = noise_cuda.noise3_perm.launches
   wk = worldgen.generate_world(ckeys, ccfg)
+  if noise_cuda.noise3_perm.launches != before + 1:
+    fail('compat worldgen on the card did not launch noise3_perm once')
   t0 = time.perf_counter()
   wc = worldgen.generate_world(ckeys.cpu(), ccfg)
   compat_cpu_s = time.perf_counter() - t0
@@ -1827,6 +1869,8 @@ def main():
   compat_reset_s = time.perf_counter() - t0
   if noise_cuda.noise2.launches:
     fail('the compat reset went through the 2-D noise kernel')
+  if not noise_cuda.noise3_perm.launches:
+    fail('the compat reset did not go through noise3_perm')
   done = torch.rand(N_ENVS, generator=gen, device=dev) < 0.1
   reset_pass_ms = {}
   for name, rcfg in (('auto', cfg), ('compat', ccfg), ('auto again', cfg),
@@ -1858,7 +1902,7 @@ def main():
   compat_ms = start.elapsed_time(end) / 3
   check_advanced(cvs, cvs0, 3 * k, 'compat state-only')
   compat_counts = read_counts('compat state-only', ('group_tick', 'balance',
-                                                    'threefry'))
+                                                    'threefry', 'noise3_perm'))
   if compat_counts['noise2']:
     fail('the compat path launched the 2-D noise kernel')
   print(f'C1 compat state-only path on {card}: 3 groups x {k} ticks x '
@@ -2249,7 +2293,8 @@ def main():
       'render_win79_4096': tick_counts['render_win79']
       + ppo_counts['render_win79'],
       'noise3': tool_counts['noise3'], 'roll': tool_counts['roll'],
-      'render_win79_terrain': terrain_counts['render_win79']}
+      'render_win79_terrain': terrain_counts['render_win79'],
+      'noise3_perm': compat_counts['noise3_perm']}
   for worlds in NOISE_WORLDS:
     name = 'noise2' if worlds == RESET_BATCH else f'noise2_{worlds}'
     launches[name] = sum(cn[f'noise2_rows_{worlds}'] for cn in paths)

@@ -31,7 +31,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_ROOT = Path(__file__).resolve().parent.parent / 'build'
 SOURCES = ('noise2.cu', 'noise3.cu', 'roll.cu', 'group_tick.cu', 'balance.cu',
-           'render.cu', 'daylight.cu', 'threefry.cu')
+           'render.cu', 'daylight.cu', 'threefry.cu', 'noise3_perm.cu')
 FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
          # No implicit multiply-add contraction: the kernels place every
          # fused multiply-add explicitly, to match their plain twins.
@@ -196,6 +196,7 @@ def library(geometry=None) -> ctypes.CDLL:
         'crafter_threefry': ([vp, i64, i64, i32, vp] + [i64] * 8
                              + [i32, vp, vp]),
         'crafter_threefry_occupancy': [i32, ctypes.POINTER(i32)],
+        'crafter_noise3_perm': [vp, i64, vp, i32, vp, vp],
     }
     names = argtypes if geometry is None else VARIANT_FUNCTIONS
     for fn in names:

@@ -12,8 +12,8 @@ this package's backends:
   wrapper, ``'fast'`` always runs the plain ``noise2_fast``; ``'compat'``
   is the original OpenSimplex with its 256-entry permutation table (a
   table a world, ``ops/noise.py:noise3``), the JAX package's 'compat'
-  mode: plain PyTorch on every device, as its JAX counterpart is plain
-  jnp (no TPU kernel behind it).
+  mode: its candidate sum is one launch of ``csrc/noise3_perm.cu`` on the
+  card (``ops/noise_cuda.py:noise3_perm``) and the plain twin on the CPU.
 """
 
 from __future__ import annotations

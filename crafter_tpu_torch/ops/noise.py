@@ -21,8 +21,9 @@ Where the fusions of the 3-D sums sit was read off XLA's optimised code for
 ``jax.jit(noise3_fast)`` (see :func:`noise3_fast`) and for the loop body of
 ``noise3`` inside ``jax.jit(jax.vmap(generate_world))`` (see
 :func:`noise3_total`).  The permutation-table noise has no TPU kernel
-behind it (the JAX package runs it as a ``lax.scan`` of jnp ops), so its
-counterpart here is plain PyTorch on every device.
+behind it (the JAX package runs it as a ``lax.scan`` of jnp ops); on the
+card worldgen calls its CUDA kernel (``ops/noise_cuda.py:noise3_perm``,
+``csrc/noise3_perm.cu``), whose plain twin is :func:`noise3_total`.
 """
 
 from __future__ import annotations

@@ -1,10 +1,12 @@
-"""Wrappers of the noise kernels (``csrc/noise2.cu``, ``csrc/noise3.cu``).
+"""Wrappers of the noise kernels (``csrc/noise2.cu``, ``csrc/noise3.cu``,
+``csrc/noise3_perm.cu``).
 
-They replace ``crafter_tpu/ops/noise_pallas.py:noise2_pallas`` and
-``noise3_pallas``.  For CUDA tensors a wrapper launches its kernel; for CPU
-tensors it runs the plain twin (``ops/noise.py:noise2_fast`` /
-``noise3_fast``).  ``noise2.launches`` and ``noise3.launches`` count kernel
-launches.
+The first two replace ``crafter_tpu/ops/noise_pallas.py:noise2_pallas`` and
+``noise3_pallas``; the third, the 'compat' worldgen's permutation-table
+noise, replaces no TPU kernel.  For CUDA tensors a wrapper launches its
+kernel; for CPU tensors it runs the plain twin (``ops/noise.py:
+noise2_fast`` / ``noise3_fast`` / ``noise3_total``).  ``noise2.launches``,
+``noise3.launches`` and ``noise3_perm.launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -113,3 +115,32 @@ def noise3(points: torch.Tensor, seed) -> torch.Tensor:
 
 
 noise3.launches = 0
+
+
+def noise3_perm(points: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+  """The candidate sum of the permutation-table noise, un-normalised, at
+  ``points`` (P, 3) float32 shared by every row, with ``perm`` (R, 256)
+  int32, a permutation of 0..255 a row: (R, P) float32, what
+  ``noise.noise3_total(points[None], perm)`` returns."""
+  if points.dtype != torch.float32 or perm.dtype != torch.int32:
+    raise TypeError('noise3_perm takes float32 points and int32 tables')
+  if (points.ndim != 2 or points.shape[1] != 3 or perm.ndim != 2
+      or perm.shape[1] != 256):
+    raise ValueError(f'points {tuple(points.shape)} / perm '
+                     f'{tuple(perm.shape)}: want (P, 3) and (R, 256)')
+  if perm.device != points.device:
+    raise ValueError('points and perm must be on one device')
+  if not (points.is_contiguous() and perm.is_contiguous()):
+    raise ValueError('noise3_perm takes contiguous points and tables')
+  if not points.is_cuda:
+    return noise.noise3_total(points[None], perm)
+  out = torch.empty((perm.shape[0], points.shape[0]), dtype=torch.float32,
+                    device=points.device)
+  _build.check(_build.library().crafter_noise3_perm(
+      points.data_ptr(), points.shape[0], perm.data_ptr(), perm.shape[0],
+      out.data_ptr(), _stream(points)), 'noise3_perm')
+  noise3_perm.launches += 1
+  return out
+
+
+noise3_perm.launches = 0

@@ -215,14 +215,15 @@ def tool_device(device: str, tool: str):
 
 def counted_wrappers():
   """``(name, wrapper)`` of every kernel wrapper that counts its launches
-  (``wrapper.launches``; the wrappers of the 3-D noise and the roll
+  (``wrapper.launches``; the wrappers of the hashed 3-D noise and the roll
   micro-bench, which no path of the package reaches, are left out)."""
   from .. import prng_cuda, render_cuda, state, step_cuda
   from ..ops import noise_cuda
   return (('group_tick', step_cuda.group_tick), ('tick', step_cuda.tick),
           ('balance', step_cuda.balance), ('noise2', noise_cuda.noise2),
           ('render_win79', render_cuda.render_win79),
-          ('daylight', state.daylight), ('threefry', prng_cuda.draw))
+          ('daylight', state.daylight), ('threefry', prng_cuda.draw),
+          ('noise3_perm', noise_cuda.noise3_perm))
 
 
 def zero_launches() -> None:

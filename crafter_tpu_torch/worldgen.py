@@ -9,8 +9,9 @@ the 13 channels' points once and a seed a world and channel, as the JAX
 package vmaps its kernel) or the plain twin on the expanded per-point
 inputs ('fast').  In 'compat' it is the permutation-table OpenSimplex
 (``ops/noise.py:noise3``, a table a world drawn by ``perm_from_key``) at
-the 3-D points ``(x / dx, y / dy, z)``: plain PyTorch on every device, as
-its JAX counterpart is plain jnp.
+the 3-D points ``(x / dx, y / dy, z)``: its candidate sum through
+``noise_cuda.noise3_perm``, one kernel launch for every world on the card
+and the plain twin ``noise3_total`` on the CPU.
 
 Float details that keep it bit-exact: divisions by constants are multiplies
 by float32 reciprocals and single-use products feeding a sum are fused
@@ -110,7 +111,7 @@ def _compat_channels(keys: torch.Tensor, cfg: EnvConfig):
   w, h = cfg.area
   r = keys.shape[0]
   perm = noise.perm_from_key(prng.split(keys, 3)[:, 0])      # (R, 256)
-  t = noise.noise3_total(channel_points3(cfg, keys.device)[None], perm)
+  t = noise_cuda.noise3_perm(channel_points3(cfg, keys.device), perm)
   t = t.reshape(r, len(CHANNELS), w, h)
   c = noise.F32_INV_NORM_3D
   n = t * c

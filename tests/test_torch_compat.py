@@ -1,7 +1,8 @@
 """The 'compat' worldgen mode of the port against the JAX package's.
 
 The permutation-table OpenSimplex (``ops/noise.py``: ``perm_from_key``,
-``perm_from_java_seed``, ``noise3``, ``octaved_noise3``) and
+``perm_from_java_seed``, ``noise3``, ``octaved_noise3``; the CPU route and
+the checks of its kernel's wrapper ``noise_cuda.noise3_perm``) and
 ``generate_world`` / ``vec_reset_chunked`` with ``noise_mode='compat'``.
 Tolerance: none.  Every table, noise value, composed channel and world
 leaf is compared bitwise with the jitted JAX function (``noise3`` also on
@@ -21,8 +22,9 @@ from crafter_tpu.config import EnvConfig as JaxConfig
 from crafter_tpu.ops import noise as jnoise
 from crafter_tpu_torch import convert, env, worldgen
 from crafter_tpu_torch.config import EnvConfig
-from crafter_tpu_torch.ops import noise
+from crafter_tpu_torch.ops import noise, noise_cuda
 from crafter_tpu_torch.ops.fma import fma32
+from crafter_tpu_torch.utils import profiling
 from one_thread import one_torch_thread  # noqa: F401
 from test_torch_worldgen import _assert_same, _to_numpy
 
@@ -90,6 +92,55 @@ def test_noise3_bitwise_on_random_points_and_per_row_tables():
     np.testing.assert_array_equal(
         shared[r].numpy(), np.asarray(jax.jit(jnoise.noise3)(pts[0],
                                                              perms[r])))
+
+
+def test_noise3_perm_cpu_route_is_the_twin():
+  """On the CPU the kernel's wrapper runs ``noise3_total`` on the shared
+  points (bit for bit, zeros' signs included), launches nothing, and its
+  normalised sum is the JAX package's noise."""
+  pts = torch.from_numpy(_points3((16, 12)))
+  perms = np.stack([jnoise.perm_from_java_seed(s) for s in (8, 9, 10)])
+  perm = torch.from_numpy(perms)
+  before = noise_cuda.noise3_perm.launches
+  got = noise_cuda.noise3_perm(pts, perm)
+  assert got.dtype == torch.float32 and got.shape == (3, pts.shape[0])
+  assert torch.equal(got.view(torch.int32),
+                     noise.noise3_total(pts[None], perm).view(torch.int32))
+  assert noise_cuda.noise3_perm.launches == before
+  for r in range(3):
+    np.testing.assert_array_equal(
+        (got[r] * noise.F32_INV_NORM_3D).numpy(),
+        np.asarray(jax.jit(jnoise.noise3)(pts.numpy(), perms[r])))
+
+
+@pytest.mark.parametrize('case,error', [
+    ('float64 points', TypeError), ('int64 tables', TypeError),
+    ('2-D points', ValueError), ('one table', ValueError),
+    ('short tables', ValueError), ('points elsewhere', ValueError),
+    ('strided points', ValueError)])
+def test_noise3_perm_rejects_bad_inputs(case, error):
+  pts = torch.zeros(10, 3)
+  perm = torch.arange(256, dtype=torch.int32).repeat(2, 1)
+  pts, perm = {
+      'float64 points': (pts.double(), perm),
+      'int64 tables': (pts, perm.long()),
+      '2-D points': (pts[:, :2], perm),
+      'one table': (pts, perm[0]),
+      'short tables': (pts, perm[:, :255]),
+      'points elsewhere': (pts.to('meta'), perm),
+      'strided points': (torch.zeros(10, 6)[:, ::2], perm),
+  }[case]
+  with pytest.raises(error):
+    noise_cuda.noise3_perm(pts, perm)
+
+
+def test_noise3_perm_launches_are_counted():
+  assert dict(profiling.counted_wrappers())['noise3_perm'] \
+      is noise_cuda.noise3_perm
+  noise_cuda.noise3_perm.launches = 3
+  assert profiling.launches()['noise3_perm'] == 3
+  profiling.zero_launches()
+  assert profiling.launches()['noise3_perm'] == 0
 
 
 def test_floor_flips_on_lattice_boundaries():

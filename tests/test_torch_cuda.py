@@ -7,7 +7,8 @@ on states packed with entities (``dense_states.py``, at 64 x 64 and on the
 generic instantiation at 48 x 48) and on the hand-built scenes; the balance
 kernel on such states at several chunk sizes and areas, the 3-D noise on
 point counts, seeds and distances from the origin that reach each of its
-branches.
+branches, the compat mode's permutation-table noise on worldgen's points
+with a reset pass's tables and on random points and tables.
 Tolerance: none (bitwise), for every kernel.  The training step on the
 card is held to its own checks (counts, finite metrics, launches): its
 policy runs cuDNN's bfloat16 kernels, which no CPU run reproduces bit for
@@ -98,15 +99,69 @@ def test_worldgen_on_card_equals_cpu(dev):
 
 
 def test_compat_worldgen_on_card_equals_cpu(dev):
-  """The 'compat' mode's permutation-table noise runs as plain PyTorch on
-  the card (no kernel): its worlds must equal the CPU's, which the CPU
-  tests hold to the JAX package, and it launches no 2-D noise kernel."""
+  """The 'compat' mode's permutation-table noise runs on the card as one
+  launch of its kernel a ``generate_world`` call: its worlds must equal the
+  CPU's, which the CPU tests hold to the JAX package, and it launches no
+  2-D noise kernel."""
   cfg = ct.EnvConfig(noise_mode='compat')
   keys = ct.prng.fold_in(ct.home_keys(6, 24, dev), 1)
   before = noise_cuda.noise2.launches
+  perm_before = noise_cuda.noise3_perm.launches
   _assert_equal(worldgen.generate_world(keys, cfg),
                 worldgen.generate_world(keys.cpu(), cfg))
   assert noise_cuda.noise2.launches == before
+  assert noise_cuda.noise3_perm.launches == perm_before + 1
+
+
+def _assert_same_bits(a, b):
+  assert torch.equal(a.view(torch.int32), b.view(torch.int32)), \
+      int((a.view(torch.int32) != b.view(torch.int32)).sum())
+
+
+def test_noise3_perm_kernel_matches_twin_on_worldgen_points(dev):
+  """The 13 channels' 3-D points of a 64 x 64 world with the 320 tables of
+  a reset pass, drawn by ``perm_from_key``: the kernel's candidate sums are
+  the twin's bits (zeros' signs included)."""
+  pts = worldgen.channel_points3(ct.EnvConfig(), dev)
+  keys = ct.prng.fold_in(ct.home_keys(21, 320, dev), 1)
+  perm = noise.perm_from_key(keys)
+  before = noise_cuda.noise3_perm.launches
+  got = noise_cuda.noise3_perm(pts, perm)
+  assert got.shape == (320, pts.shape[0])
+  _assert_same_bits(got, noise.noise3_total(pts[None], perm))
+  assert noise_cuda.noise3_perm.launches == before + 1
+  assert float(got.abs().max()) > 50
+
+
+@pytest.mark.parametrize('n,rows', [(1, 1), (1000, 1), (4099, 17),
+                                    (777, 33)])
+def test_noise3_perm_kernel_random_points_match_twin(dev, n, rows):
+  """Points within +-1e6 and within +-3 (every candidate near the origin),
+  point counts that leave a block part empty and world counts that leave
+  a tile part empty, tables drawn at random."""
+  gen = torch.Generator(device=dev)
+  gen.manual_seed(70 + n + rows)
+  perm = torch.argsort(torch.rand(rows, 256, generator=gen, device=dev),
+                       dim=1).to(torch.int32)
+  for scale in (1e6, 3.0):
+    pts = ((torch.rand(n, 3, generator=gen, device=dev, dtype=torch.float64)
+            - 0.5) * 2 * scale).float()
+    _assert_same_bits(noise_cuda.noise3_perm(pts, perm),
+                      noise.noise3_total(pts[None], perm))
+
+
+def test_noise3_perm_kernel_on_lattice_planes(dev):
+  """A grid of quarter-integer points, whose stretched coordinates land on
+  lattice planes and whose weights are 0 at many candidates."""
+  xs = torch.arange(-40, 41, dtype=torch.float32, device=dev) / 4
+  pts = torch.stack(torch.meshgrid(xs, xs[:9], xs[:5], indexing='ij'),
+                    -1).reshape(-1, 3).contiguous()
+  gen = torch.Generator(device=dev)
+  gen.manual_seed(77)
+  perm = torch.argsort(torch.rand(5, 256, generator=gen, device=dev),
+                       dim=1).to(torch.int32)
+  _assert_same_bits(noise_cuda.noise3_perm(pts, perm),
+                    noise.noise3_total(pts[None], perm))
 
 
 def test_render_kernel_matches_plain_twin(dev):
