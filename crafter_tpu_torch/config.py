@@ -4,10 +4,12 @@ Same fields and the same chunk-size check as the JAX package's
 ``EnvConfig``.  The two backend knobs keep their names; their values name
 this package's backends:
 
-* ``engine`` — the group tick and the group-end balance: ``'auto'`` calls
-  the kernel wrappers of :mod:`crafter_tpu_torch.step_cuda`, which launch
-  the hand-written CUDA kernels for CUDA tensors and take the plain
-  PyTorch twin for CPU tensors; ``'plain'`` always runs the twin.
+* ``engine`` — one value, ``'auto'``: the tick, group tick, balance and
+  render go through the kernel wrappers (``step_cuda``, ``render_cuda``),
+  which launch the hand-written CUDA kernels for CUDA tensors and run the
+  plain PyTorch twins for CPU tensors, so the tensors' device is the one
+  choice.  The field stays because the benchmark's configuration files
+  and the JAX package's ``EnvConfig`` name it; any other value raises.
 * ``noise_mode`` — the worldgen noise: ``'auto'`` calls the noise kernel
   wrapper, ``'fast'`` always runs the plain ``noise2_fast``; ``'compat'``
   is the original OpenSimplex with its 256-entry permutation table (a
@@ -24,7 +26,7 @@ from typing import Tuple
 
 from . import rules
 
-ENGINES = ('auto', 'plain')
+ENGINES = ('auto',)
 NOISE_MODES = ('auto', 'fast', 'compat')
 
 

@@ -17,9 +17,10 @@ batch: the reset pass then keeps the one-process rule, the first
 ``reset_batch`` finished envs by global index, as the JAX package's
 GSPMD-sharded ``vec_step`` does.
 
-``cfg.engine`` picks the backend of the tick, group tick, balance and
-render ('auto': the CUDA kernels for CUDA tensors, 'plain': the PyTorch
-twins); ``cfg.noise_mode`` the worldgen noise backend likewise.
+The tick, group tick, balance and render go through their kernel
+wrappers (``step_cuda``, ``render_cuda``), which launch the CUDA kernels
+for CUDA tensors and run the plain PyTorch twins for any other;
+``cfg.noise_mode`` picks the worldgen noise.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from . import prng, rules
+from . import prng, render_cuda, rules
 from . import render as render_lib
 from . import state as state_lib
 from . import step as step_lib
@@ -76,19 +77,19 @@ class CrafterEnv:
   def step(self, state: State, action: torch.Tensor):
     """One tick, balance on each env's own cadence: ``(state, obs, reward,
     done, info)``."""
-    state, out = step_lib.step_batch(state, action, self.cfg)
+    state, out = step_batch(state, action, self.cfg)
     reward = out.reward if self.cfg.reward else torch.zeros_like(out.reward)
     return state, self.observe(state), reward, out.done, self.info(state, out)
 
   def observe(self, state: State) -> torch.Tensor:
     """Frames (N, H, W, 3) uint8."""
-    return render_lib.render(state, self.cfg, self.atlas, self.cfg.size)
+    return render_cuda.render(state, self.cfg, self.atlas, self.cfg.size)
 
   observe_batch = observe
 
   def observe_px(self, state: State) -> torch.Tensor:
     """Raw packed pixel lanes (N, C) int32 ``r | g<<8 | b<<16``."""
-    return render_lib.render_px_fields(
+    return render_cuda.render_px_fields(
         state.mat_map, state.ent.etype, state.ent.aux, state.ent.facing,
         state.player.pos, state.player.facing, state.player.sleeping,
         state.player.inventory, state.step, state.key, self.cfg, self.atlas)
@@ -172,8 +173,8 @@ class Env:
     size = tuple(size) if size is not None else self.cfg.size
     atlas = render_lib.bake_atlas(size, self.cfg.view, self.cfg.item_rows,
                                   self.device)
-    return render_lib.render(self._state, self.cfg, atlas,
-                             size)[0].cpu().numpy()
+    return render_cuda.render(self._state, self.cfg, atlas,
+                              size)[0].cpu().numpy()
 
 
 class GymnasiumEnv(_GymBase):
@@ -296,10 +297,7 @@ def vec_step_group(vs: VecState, actions: torch.Tensor, cfg: EnvConfig,
   k = cfg.balance_every
   if actions.shape[0] != k:
     raise ValueError(f'actions {tuple(actions.shape)}: want ({k}, N)')
-  if cfg.engine == 'plain':
-    env, raw, occ_pre = step_lib.step_group_plain(vs.env, actions, cfg)
-  else:
-    env, raw, occ_pre = step_cuda.group_tick(vs.env, actions, cfg)
+  env, raw, occ_pre = step_cuda.group_tick(vs.env, actions, cfg)
   return _group_finish(vs, env, raw, occ_pre, cfg, reset_batch)
 
 
@@ -319,19 +317,15 @@ def vec_step_group_obs(vs: VecState, actions: torch.Tensor, cfg: EnvConfig,
     raise ValueError(f'actions {tuple(actions.shape)}: want ({k}, N)')
   n = actions.shape[1]
   key0, step0 = vs.env.key, vs.env.step   # episode keys: fixed over a group
-  if cfg.engine == 'plain':
-    env, raw, occ_pre, snaps = step_lib.step_group_plain(
-        vs.env, actions, cfg, snapshots=True)
-  else:
-    env, raw, occ_pre, snaps = step_cuda.group_tick(vs.env, actions, cfg,
-                                                    snapshots=True)
+  env, raw, occ_pre, snaps = step_cuda.group_tick(vs.env, actions, cfg,
+                                                  snapshots=True)
   vs, outs = _group_finish(vs, env, raw, occ_pre, cfg, reset_batch)
 
   # Rows are (tick 0..K-2) x N from the snapshots, then the N final frames:
   # (K, N) order.  The final frames' packed plane goes into the row the
   # kernel left free.
   fin = vs.env
-  snaps.packed[k - 1] = render_lib.pack_cells(
+  snaps.packed[k - 1] = step_lib.pack_cells(
       fin.mat_map, fin.ent.etype, fin.ent.aux, fin.ent.facing)
   km1 = k - 1
   steps_mid = (step0[None] + 1
@@ -342,7 +336,7 @@ def vec_step_group_obs(vs: VecState, actions: torch.Tensor, cfg: EnvConfig,
   steps = rows(steps_mid, fin.step)
   seeds = rows(render_lib.noise_seed(key0[None].expand(km1, n, 2), steps_mid),
                render_lib.noise_seed(fin.key, fin.step))
-  obs = render_lib.render_frames(
+  obs = render_cuda.render_frames(
       snaps.packed.reshape(k * n, -1),
       rows(torch.stack([snaps.px, snaps.py], -1), fin.player.pos),
       rows(snaps.facing, fin.player.facing),
@@ -350,6 +344,61 @@ def vec_step_group_obs(vs: VecState, actions: torch.Tensor, cfg: EnvConfig,
       rows(snaps.inv, fin.player.inventory), steps, seeds, cfg, core.atlas,
       cfg.size)
   return vs, outs, obs.reshape((k, n) + obs.shape[1:])
+
+
+def step_batch(states: State, actions: torch.Tensor, cfg: EnvConfig,
+               balance: bool | None = None):
+  """One simulation tick of every env (env.py:83-118; the JAX package's
+  ``step.step_batch``): ``actions`` (N,).
+
+  ``balance``: None balances each env on its own cadence (every
+  ``cfg.balance_every``-th step of the env); True / False force the phase
+  on / off for this tick.  The tick itself is ``step_cuda.tick``.
+  Returns ``(states, out)`` with (N,) StepOut leaves.
+  """
+  step_ = states.step + 1
+  s_player, s_mob, s_balance = step_lib.tick_seeds(states.key, step_)
+  states = dataclasses.replace(states, step=step_)
+  states = step_cuda.tick(states, actions, s_player, s_mob, cfg)
+  return finish_tick(states, s_balance, cfg, balance)
+
+
+def finish_tick(states: State, s_balance: torch.Tensor, cfg: EnvConfig,
+                balance: bool | None):
+  """Chunk balancing when asked, the touched-chunk update, reward and done
+  of a tick (the JAX package's ``step._finish_tick`` for a batch).
+  ``balance=None`` balances the envs whose step is a multiple of
+  ``cfg.balance_every``, by a select."""
+  if balance is None or balance:
+    balanced = step_cuda.balance(states, s_balance, None, cfg)
+    if balance is None:
+      due = states.step % cfg.balance_every == 0
+      pick = lambda new, old: torch.where(
+          due.reshape((-1,) + (1,) * (old.ndim - 1)), new, old)
+      ent = dataclasses.replace(
+          states.ent, etype=pick(balanced.ent.etype, states.ent.etype),
+          health=pick(balanced.ent.health, states.ent.health),
+          aux=pick(balanced.ent.aux, states.ent.aux))
+      balanced = dataclasses.replace(
+          states, ent=ent, chunk_touched=pick(balanced.chunk_touched,
+                                              states.chunk_touched))
+    states = balanced
+  # Chunks that hold an entity count as touched from now on (the
+  # reference's defaultdict keys, engine.py:36, :57, :78-79).
+  n = states.step.shape[0]
+  chunk, _, _ = step_lib._chunk_layout(cfg, str(states.mat_map.device))
+  ncx, ncy = cfg.n_chunks
+  held = torch.zeros((n, ncx * ncy), dtype=torch.int32,
+                     device=states.mat_map.device)
+  held.index_add_(1, chunk, (states.ent.etype > 0).to(torch.int32))
+  touched = states.chunk_touched | (held > 0).reshape(n, ncx, ncy)
+  reward, done, dead, unl, hp = step_lib._reward_done(
+      states.player.inventory, states.player.achievements, states.unlocked,
+      states.env_last_health, states.step, cfg)
+  states = dataclasses.replace(states, env_last_health=hp, unlocked=unl,
+                               chunk_touched=touched)
+  return states, step_lib.StepOut(reward=reward, done=done, dead=dead,
+                                  ended=done)
 
 
 def vec_step(vs: VecState, actions: torch.Tensor, cfg: EnvConfig,
@@ -370,7 +419,7 @@ def vec_step(vs: VecState, actions: torch.Tensor, cfg: EnvConfig,
   tick = vs.tick + 1
   if balance is None:
     balance = int(tick) % cfg.balance_every == 0
-  env, out = step_lib.step_batch(vs.env, actions, cfg, balance=balance)
+  env, out = step_batch(vs.env, actions, cfg, balance=balance)
   stepped_env = env
   # A pending env counts as done whatever this tick says (a dead env
   # stepped again can regenerate health); `ended` pulses only on the tick
@@ -415,10 +464,7 @@ def _group_finish(vs: VecState, env: State, raw: step_lib.StepOut,
   prev = torch.cat([vs.pending[None], done[:-1]], 0)
   outs = dataclasses.replace(raw, done=done, ended=raw.done & ~prev)
   s_bal = step_lib.tick_seeds(env.key, env.step)[2]
-  if cfg.engine == 'plain':
-    env = step_lib.balance_plain(env, s_bal, occ_pre, cfg)
-  else:
-    env = step_cuda.balance(env, s_bal, occ_pre, cfg)
+  env = step_cuda.balance(env, s_bal, occ_pre, cfg)
   env, episode, pending = _reset_pass(env, done[-1], vs.episode,
                                       vs.home_key, cfg, reset_batch)
   vs = VecState(env=env, episode=episode, home_key=vs.home_key,

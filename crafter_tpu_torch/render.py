@@ -21,7 +21,8 @@ is baked once per render size into the :class:`Atlas`.
   expands the 79 values onto pixels with a one-hot matmul and picks texels
   with select chains over the candidate planes, this indexes: a per-pixel
   source index and one gather each from the material and sprite planes.
-* :func:`render_frames` and :func:`render` tie them together.
+* ``render_cuda.render_frames`` and ``render_cuda.render`` tie them to
+  the render kernel's wrapper.
 
 Pixel lanes are row-major over the output frame: lane ``l = row * size[0]
 + col`` of the ``(size[1], size[0], 3)`` image.
@@ -38,24 +39,14 @@ import numpy as np
 import torch
 
 from . import rules
-from . import state as state_lib
 from .config import EnvConfig
 from .ops.fma import fma32
-from .state import State
-from .step import fmix, i32c, key_words_i32, srl
+from .step import (TEX_PLAYER, TEX_PLAYER_SLEEP, fmix, i32c, key_words_i32,
+                   srl)
 
 ASSETS = pathlib.Path(__file__).parent / 'assets'
 
-# Entity render-texture ids (objects.py texture properties).
-TEX_NONE = 0
-TEX_PLAYER = 1          # +facing: left, right, up, down (objects.py:85-93)
-TEX_PLAYER_SLEEP = 5
-TEX_COW = 6
-TEX_ZOMBIE = 7
-TEX_SKELETON = 8
-TEX_ARROW = 9           # +facing (objects.py:361-367)
-TEX_PLANT = 13
-TEX_PLANT_RIPE = 14     # objects.py:394-399
+# The sprite textures by ``step.TEX_*`` id.
 ENT_TEX_NAMES = (
     None, 'player-left', 'player-right', 'player-up', 'player-down',
     'player-sleep', 'cow', 'zombie', 'skeleton', 'arrow-left', 'arrow-right',
@@ -387,26 +378,6 @@ def noise_seed(key: torch.Tensor, step: torch.Tensor) -> torch.Tensor:
                     + i32c(0x51ED2701)))
 
 
-def pack_cells(mat_map, ent_etype, ent_aux, ent_facing) -> torch.Tensor:
-  """Per-cell channels -> the packed render plane (uint8): material id
-  (4 bits) | cell sprite id (4 bits).  The sprite id is final for every
-  entity type except the player, whose tile carries the marker TEX_PLAYER
-  and is resolved against facing / sleeping in :func:`window_prep`.  The
-  group kernel's snapshots use the same packing."""
-  t = ent_etype.to(torch.int32)
-  f = ent_facing.to(torch.int32)
-  ripe = ((t == rules.E_PLANT) & (ent_aux.to(torch.int32) > 300)).to(
-      torch.int32)
-  ctex = torch.zeros_like(t)
-  for etype, tex in ((rules.E_PLAYER, TEX_PLAYER), (rules.E_COW, TEX_COW),
-                     (rules.E_ZOMBIE, TEX_ZOMBIE),
-                     (rules.E_SKELETON, TEX_SKELETON),
-                     (rules.E_ARROW, TEX_ARROW + f),
-                     (rules.E_PLANT, TEX_PLANT + ripe)):
-    ctex = torch.where(t == etype, tex, ctex)
-  return (mat_map.to(torch.int32) | (ctex << 4)).to(torch.uint8)
-
-
 def window_prep(packed: torch.Tensor, ppos: torch.Tensor,
                 pfacing: torch.Tensor, sleeping: torch.Tensor,
                 inventory: torch.Tensor, cfg: EnvConfig) -> torch.Tensor:
@@ -581,84 +552,10 @@ def frame_image(packed_px: torch.Tensor,
 def format_pixels(px: torch.Tensor, size: Tuple[int, int],
                   out_format: str) -> torch.Tensor:
   """(B, C) packed pixel lanes in one of the output formats of
-  :func:`render_frames`."""
+  ``render_cuda.render_frames``."""
   if out_format == 'packed':
     return px
   frames = frame_image(px, size)
   if out_format == 'words':
     return frames.reshape(px.shape[0], -1).view(torch.int32)
   return frames
-
-
-def render_frames(packed: torch.Tensor, ppos: torch.Tensor,
-                  pfacing: torch.Tensor, sleeping: torch.Tensor,
-                  inventory: torch.Tensor, steps: torch.Tensor,
-                  seeds: torch.Tensor, cfg: EnvConfig, atlas: Atlas,
-                  size: Tuple[int, int] = (64, 64),
-                  out_format: str = 'frames') -> torch.Tensor:
-  """A batch of frames: window gather, then the render kernel
-  (``cfg.engine == 'plain'``: its twin).
-
-  ``packed`` (B, C_cells) packed cell planes (:func:`pack_cells` or the
-  group kernel's snapshots), ``seeds`` (B,) from :func:`noise_seed`.
-  ``out_format``: ``'frames'`` (B, size[1], size[0], 3) uint8; ``'packed'``
-  (B, C) int32 ``r | g<<8 | b<<16`` pixel lanes; ``'words'`` the frames'
-  byte stream viewed as (B, 3C/4) int32.
-  """
-  from . import render_cuda
-  win79 = window_prep(packed, ppos, pfacing, sleeping, inventory, cfg)
-  light = state_lib.daylight(steps, cfg.day_length)
-  if cfg.engine == 'plain':
-    px = render_win79_plain(win79, light, sleeping, seeds, atlas)
-    return format_pixels(px, size, out_format)
-  return render_cuda.render_win79(win79, light, sleeping, seeds, atlas, size,
-                                  out_format)
-
-
-def _render_any(mat_map, ent_etype, ent_aux, ent_facing, ppos, pfacing,
-                sleeping, inventory, step, key, cfg, atlas, size, out_format):
-  single = mat_map.ndim == 1
-  fields = [mat_map, ent_etype, ent_aux, ent_facing, ppos, pfacing,
-            torch.as_tensor(sleeping, device=mat_map.device), inventory,
-            torch.as_tensor(step, device=mat_map.device), key]
-  if single:
-    fields = [f[None] for f in fields]
-  (mat_map, ent_etype, ent_aux, ent_facing, ppos, pfacing, sleeping,
-   inventory, step, key) = fields
-  out = render_frames(
-      pack_cells(mat_map, ent_etype, ent_aux, ent_facing), ppos, pfacing,
-      sleeping, inventory, step, noise_seed(key, step), cfg, atlas, size,
-      out_format)
-  return out[0] if single else out
-
-
-def render_px_fields(mat_map, ent_etype, ent_aux, ent_facing, ppos, pfacing,
-                     sleeping, inventory, step, key, cfg: EnvConfig,
-                     atlas: Atlas) -> torch.Tensor:
-  """Frames from bare field tensors as raw (.., C) int32 ``r | g<<8 |
-  b<<16`` pixel lanes.  Every field has a leading env axis, or none has
-  (one env)."""
-  return _render_any(mat_map, ent_etype, ent_aux, ent_facing, ppos, pfacing,
-                     sleeping, inventory, step, key, cfg, atlas, cfg.size,
-                     'packed')
-
-
-def render_fields(mat_map, ent_etype, ent_aux, ent_facing, ppos, pfacing,
-                  sleeping, inventory, step, key, cfg: EnvConfig,
-                  atlas: Atlas,
-                  size: Tuple[int, int] = (64, 64)) -> torch.Tensor:
-  """:func:`render` on bare field tensors: (.., size[1], size[0], 3)
-  uint8."""
-  return _render_any(mat_map, ent_etype, ent_aux, ent_facing, ppos, pfacing,
-                     sleeping, inventory, step, key, cfg, atlas, size,
-                     'frames')
-
-
-def render(state: State, cfg: EnvConfig, atlas: Atlas,
-           size: Tuple[int, int] = (64, 64)) -> torch.Tensor:
-  """Frames of a state, one env or a batch: (.., size[1], size[0], 3)
-  uint8 (env.py:120-130)."""
-  return render_fields(
-      state.mat_map, state.ent.etype, state.ent.aux, state.ent.facing,
-      state.player.pos, state.player.facing, state.player.sleeping,
-      state.player.inventory, state.step, state.key, cfg, atlas, size)

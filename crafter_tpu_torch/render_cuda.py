@@ -1,4 +1,5 @@
-"""Wrapper of the render kernel (``csrc/render.cu``).
+"""Wrappers of the render and daylight kernels (``csrc/render.cu``,
+``csrc/daylight.cu``), and the frame functions built on them.
 
 :func:`render_win79` replaces ``crafter_tpu/render.py:render_win79``; its
 plain twin is ``render.render_win79_plain``.  For CUDA tensors it launches
@@ -7,8 +8,17 @@ shared-memory instantiation where they fit in a block's shared memory (64
 x 64), else the instantiation that reads them from global memory; for CPU
 tensors it runs the twin.  A window is 79 values for the 9 x 9 view, or
 any other count (a view of the whole area: one a world cell and 16),
-which the atlas's view fixes.  ``render_win79.launches`` counts kernel
-launches.
+which the atlas's view fixes.  :func:`daylight` is the frames' light: one
+launch of its kernel for int32 steps on the card, the twin
+``state.daylight_plain`` for CPU steps.  ``render_win79.launches`` and
+``daylight.launches`` count kernel launches.
+
+:func:`render_frames` gathers each frame's window (``render.window_prep``)
+and renders it with the light of its step; :func:`render_fields`,
+:func:`render_px_fields` and :func:`render` make the frames of bare field
+tensors or of a state.  They call :func:`render_win79` and
+:func:`daylight` through this module's globals, so a replacement of
+either attribute sees every frame.
 """
 
 from __future__ import annotations
@@ -21,6 +31,10 @@ import torch
 
 from . import _build
 from . import render as render_lib
+from . import state as state_lib
+from .config import EnvConfig
+from .state import State
+from .step import pack_cells
 
 OUT_FORMATS = ('frames', 'packed', 'words')
 INSTANTIATIONS = ('auto', 'shared', 'global')
@@ -130,3 +144,99 @@ def _launch_render(win79, daylight, sleeping, seeds, atlas, size, out_format,
   if out_format == 'words':
     return out.reshape(b, -1).view(torch.int32)
   return out
+
+
+def daylight(step: torch.Tensor, day_length: int) -> torch.Tensor:
+  """Day/night curve 1 - |cos(pi*((t/300)%1 + 0.3))|^3 (env.py:135-139).
+
+  The renderer multiplies pixels by the light and floors, so the light has
+  to be the JAX package's under ``jax.jit`` bit for bit, and the same on
+  the CPU and the card.  CPU steps take ``state.daylight_plain``; int32
+  steps on the card one launch of ``csrc/daylight.cu``, the same
+  arithmetic.
+  """
+  if not step.is_cuda:
+    return state_lib.daylight_plain(step, day_length)
+  if step.dtype != torch.int32:
+    raise TypeError(f'daylight takes int32 steps on the card, not '
+                    f'{step.dtype}')
+  flat = step.reshape(-1)
+  out = torch.empty(flat.shape, dtype=torch.float32, device=step.device)
+  _build.check(_build.library().crafter_daylight(
+      flat.data_ptr(), flat.stride(0), flat.numel(),
+      state_lib.inv_day(day_length), out.data_ptr(),
+      torch.cuda.current_stream(step.device).cuda_stream), 'daylight')
+  daylight.launches += 1
+  return out.reshape(step.shape)
+
+
+daylight.launches = 0
+
+
+def render_frames(packed: torch.Tensor, ppos: torch.Tensor,
+                  pfacing: torch.Tensor, sleeping: torch.Tensor,
+                  inventory: torch.Tensor, steps: torch.Tensor,
+                  seeds: torch.Tensor, cfg: EnvConfig,
+                  atlas: render_lib.Atlas, size: Tuple[int, int] = (64, 64),
+                  out_format: str = 'frames') -> torch.Tensor:
+  """A batch of frames: window gather, then :func:`render_win79`.
+
+  ``packed`` (B, C_cells) packed cell planes (``step.pack_cells`` or the
+  group kernel's snapshots), ``seeds`` (B,) from ``render.noise_seed``.
+  ``out_format``: ``'frames'`` (B, size[1], size[0], 3) uint8; ``'packed'``
+  (B, C) int32 ``r | g<<8 | b<<16`` pixel lanes; ``'words'`` the frames'
+  byte stream viewed as (B, 3C/4) int32.
+  """
+  win79 = render_lib.window_prep(packed, ppos, pfacing, sleeping, inventory,
+                                 cfg)
+  light = daylight(steps, cfg.day_length)
+  return render_win79(win79, light, sleeping, seeds, atlas, size, out_format)
+
+
+def _render_any(mat_map, ent_etype, ent_aux, ent_facing, ppos, pfacing,
+                sleeping, inventory, step, key, cfg, atlas, size, out_format):
+  single = mat_map.ndim == 1
+  fields = [mat_map, ent_etype, ent_aux, ent_facing, ppos, pfacing,
+            torch.as_tensor(sleeping, device=mat_map.device), inventory,
+            torch.as_tensor(step, device=mat_map.device), key]
+  if single:
+    fields = [f[None] for f in fields]
+  (mat_map, ent_etype, ent_aux, ent_facing, ppos, pfacing, sleeping,
+   inventory, step, key) = fields
+  out = render_frames(
+      pack_cells(mat_map, ent_etype, ent_aux, ent_facing), ppos, pfacing,
+      sleeping, inventory, step, render_lib.noise_seed(key, step), cfg,
+      atlas, size, out_format)
+  return out[0] if single else out
+
+
+def render_px_fields(mat_map, ent_etype, ent_aux, ent_facing, ppos, pfacing,
+                     sleeping, inventory, step, key, cfg: EnvConfig,
+                     atlas: render_lib.Atlas) -> torch.Tensor:
+  """Frames from bare field tensors as raw (.., C) int32 ``r | g<<8 |
+  b<<16`` pixel lanes.  Every field has a leading env axis, or none has
+  (one env)."""
+  return _render_any(mat_map, ent_etype, ent_aux, ent_facing, ppos, pfacing,
+                     sleeping, inventory, step, key, cfg, atlas, cfg.size,
+                     'packed')
+
+
+def render_fields(mat_map, ent_etype, ent_aux, ent_facing, ppos, pfacing,
+                  sleeping, inventory, step, key, cfg: EnvConfig,
+                  atlas: render_lib.Atlas,
+                  size: Tuple[int, int] = (64, 64)) -> torch.Tensor:
+  """:func:`render` on bare field tensors: (.., size[1], size[0], 3)
+  uint8."""
+  return _render_any(mat_map, ent_etype, ent_aux, ent_facing, ppos, pfacing,
+                     sleeping, inventory, step, key, cfg, atlas, size,
+                     'frames')
+
+
+def render(state: State, cfg: EnvConfig, atlas: render_lib.Atlas,
+           size: Tuple[int, int] = (64, 64)) -> torch.Tensor:
+  """Frames of a state, one env or a batch: (.., size[1], size[0], 3)
+  uint8 (env.py:120-130)."""
+  return render_fields(
+      state.mat_map, state.ent.etype, state.ent.aux, state.ent.facing,
+      state.player.pos, state.player.facing, state.player.sleeping,
+      state.player.inventory, state.step, state.key, cfg, atlas, size)

@@ -16,7 +16,7 @@ import functools
 import numpy as np
 import torch
 
-from . import _build, rules
+from . import rules
 from .config import EnvConfig
 from .ops.fma import cos32, fma32
 
@@ -61,36 +61,12 @@ class State:
   chunk_touched: torch.Tensor    # (N, ncx, ncy) bool
 
 
-def daylight(step: torch.Tensor, day_length: int) -> torch.Tensor:
-  """Day/night curve 1 - |cos(pi*((t/300)%1 + 0.3))|^3 (env.py:135-139).
-
-  The renderer multiplies pixels by the light and floors, so the light has
-  to be the JAX package's under ``jax.jit`` bit for bit, and the same on
-  the CPU and the card.  CPU steps take :func:`daylight_plain`; int32 steps
-  on the card one launch of ``csrc/daylight.cu``, the same arithmetic.
-  """
-  if not step.is_cuda:
-    return daylight_plain(step, day_length)
-  if step.dtype != torch.int32:
-    raise TypeError(f'daylight takes int32 steps on the card, not '
-                    f'{step.dtype}')
-  flat = step.reshape(-1)
-  out = torch.empty(flat.shape, dtype=torch.float32, device=step.device)
-  _build.check(_build.library().crafter_daylight(
-      flat.data_ptr(), flat.stride(0), flat.numel(), inv_day(day_length),
-      out.data_ptr(), torch.cuda.current_stream(step.device).cuda_stream),
-      'daylight')
-  daylight.launches += 1
-  return out.reshape(step.shape)
-
-
-daylight.launches = 0
-
-
 def daylight_plain(step: torch.Tensor, day_length: int) -> torch.Tensor:
-  """:func:`daylight` in PyTorch operations.  Every step is XLA's float32
-  arithmetic: the division as a multiply by the float32 reciprocal, the
-  cosine glibc's ``cosf`` (``ops/fma.py:cos32``), and
+  """Day/night curve 1 - |cos(pi*((t/300)%1 + 0.3))|^3 (env.py:135-139) in
+  PyTorch operations, the twin of ``render_cuda.daylight``'s kernel.  The
+  renderer multiplies pixels by the light and floors, so every step is
+  XLA's float32 arithmetic: the division as a multiply by the float32
+  reciprocal, the cosine glibc's ``cosf`` (``ops/fma.py:cos32``), and
   ``1 - |c| * (|c| * |c|)`` with the outer product fused into the
   subtract.  Equal to the JAX function for every int32 step and day
   length tested (``tests/test_torch_render.py``)."""

@@ -6,7 +6,10 @@ player phase (``_player_core``), the mob / arrow / plant phase
 (``_mob_core``), the reward / done bookkeeping of a tick, a whole
 balance-cadence group (``step_group_batch``) and the group-end chunk
 balancing (``_balance_core``).  These are the plain twins of the CUDA
-kernels in ``step_cuda.py`` and the reference the kernels are held to.
+kernels in ``step_cuda.py`` and the reference the kernels are held to;
+this module imports no kernel wrapper.  :func:`pack_cells` is the packed
+render plane that a group's snapshots (:class:`GroupSnaps`) hold, which
+the group kernel writes in the same format.
 
 They port the JAX package's *results*, not its TPU idioms: one-hot
 ``read_at`` sums become gathers, rolls with masks become slice shifts, the
@@ -58,7 +61,7 @@ class GroupSnaps:
   """Per-tick render snapshots of a group for ticks 0..K-2, tick-major (the
   group's last frame is rendered from the post-balance, post-reset state by
   the caller).  All the renderer reads of a cell is one byte: material id
-  | cell sprite id << 4 (the ``render.pack_cells`` encoding)."""
+  | cell sprite id << 4 (the :func:`pack_cells` encoding)."""
 
   packed: torch.Tensor    # (K, N, C) uint8; row K-1 is left for the caller
   px: torch.Tensor        # (K-1, N) int32 player x
@@ -66,6 +69,39 @@ class GroupSnaps:
   facing: torch.Tensor    # (K-1, N) int32 player facing
   sleeping: torch.Tensor  # (K-1, N) int32 0/1
   inv: torch.Tensor       # (K-1, N, 16) int32 inventory
+
+
+# Cell sprite ids of the packed render plane, the render atlas's
+# texture ids (objects.py texture properties).
+TEX_NONE = 0
+TEX_PLAYER = 1          # +facing: left, right, up, down (objects.py:85-93)
+TEX_PLAYER_SLEEP = 5
+TEX_COW = 6
+TEX_ZOMBIE = 7
+TEX_SKELETON = 8
+TEX_ARROW = 9           # +facing (objects.py:361-367)
+TEX_PLANT = 13
+TEX_PLANT_RIPE = 14     # objects.py:394-399
+
+
+def pack_cells(mat_map, ent_etype, ent_aux, ent_facing) -> torch.Tensor:
+  """Per-cell channels -> the packed render plane (uint8): material id
+  (4 bits) | cell sprite id (4 bits).  The sprite id is final for every
+  entity type except the player, whose tile carries the marker TEX_PLAYER
+  and is resolved against facing / sleeping in ``render.window_prep``.
+  The group kernel's snapshots use the same packing."""
+  t = ent_etype.to(torch.int32)
+  f = ent_facing.to(torch.int32)
+  ripe = ((t == rules.E_PLANT) & (ent_aux.to(torch.int32) > 300)).to(
+      torch.int32)
+  ctex = torch.zeros_like(t)
+  for etype, tex in ((rules.E_PLAYER, TEX_PLAYER), (rules.E_COW, TEX_COW),
+                     (rules.E_ZOMBIE, TEX_ZOMBIE),
+                     (rules.E_SKELETON, TEX_SKELETON),
+                     (rules.E_ARROW, TEX_ARROW + f),
+                     (rules.E_PLANT, TEX_PLANT + ripe)):
+    ctex = torch.where(t == etype, tex, ctex)
+  return (mat_map.to(torch.int32) | (ctex << 4)).to(torch.uint8)
 
 
 # ---------------------------------------------------------------------------
@@ -648,7 +684,7 @@ def tick_plain(states: State, actions: torch.Tensor, s_player: torch.Tensor,
   """One tick of player phase + mob phase for every env, given the tick's
   two seeds (N,) int32 (``_tick_pallas``'s function): planes and player
   updated, the mob damage applied to inventory health; step, reward memory
-  and unlocked flags untouched (:func:`finish_tick` does those)."""
+  and unlocked flags untouched (``env.finish_tick`` does those)."""
   grids, scal, inv, ach = _tick_core(*_unpack(states, cfg), actions,
                                      s_player, s_mob, cfg)
   return _repack(states, grids, scal, inv, ach)
@@ -664,7 +700,6 @@ def step_group_plain(states: State, actions: torch.Tensor, cfg: EnvConfig,
   ticks 0..K-2.  With ``snapshots`` a :class:`GroupSnaps` of the state after
   each tick t < K-1 follows.
   """
-  from . import render as render_lib
   k, n = actions.shape
   if snapshots and k < 2:
     raise ValueError('snapshots need a group of at least 2 ticks')
@@ -690,7 +725,7 @@ def step_group_plain(states: State, actions: torch.Tensor, cfg: EnvConfig,
       occ = occ | grids[1]
       if snapshots:
         M, T, _, A, F = (g.reshape(n, -1) for g in grids)
-        snaps.append((render_lib.pack_cells(M, T, A, F), scal[1], scal[2],
+        snaps.append((pack_cells(M, T, A, F), scal[1], scal[2],
                       scal[0], scal[3].to(torch.int32), inv))
   states = _repack(states, grids, scal, inv, ach, step=step0 + k,
                    env_last_health=elh, unlocked=unl)
@@ -703,68 +738,6 @@ def step_group_plain(states: State, actions: torch.Tensor, cfg: EnvConfig,
   cols = [torch.stack(col) for col in zip(*snaps)]
   packed = torch.cat([cols[0], torch.empty_like(cols[0][:1])])
   return states, raw, occ_pre, GroupSnaps(packed, *cols[1:])
-
-
-# ---------------------------------------------------------------------------
-# The single tick (step.py:step_batch, _finish_tick).
-# ---------------------------------------------------------------------------
-
-
-def finish_tick(states: State, s_balance: torch.Tensor, cfg: EnvConfig,
-                balance: bool | None):
-  """Chunk balancing when asked, the touched-chunk update, reward and done
-  of a tick (``_finish_tick`` for a batch).  ``balance=None`` balances the
-  envs whose step is a multiple of ``cfg.balance_every``, by a select."""
-  from . import step_cuda
-  if balance is None or balance:
-    run = balance_plain if cfg.engine == 'plain' else step_cuda.balance
-    balanced = run(states, s_balance, None, cfg)
-    if balance is None:
-      due = states.step % cfg.balance_every == 0
-      pick = lambda new, old: torch.where(
-          due.reshape((-1,) + (1,) * (old.ndim - 1)), new, old)
-      ent = dataclasses.replace(
-          states.ent, etype=pick(balanced.ent.etype, states.ent.etype),
-          health=pick(balanced.ent.health, states.ent.health),
-          aux=pick(balanced.ent.aux, states.ent.aux))
-      balanced = dataclasses.replace(
-          states, ent=ent, chunk_touched=pick(balanced.chunk_touched,
-                                              states.chunk_touched))
-    states = balanced
-  # Chunks that hold an entity count as touched from now on (the
-  # reference's defaultdict keys, engine.py:36, :57, :78-79).
-  n = states.step.shape[0]
-  chunk, _, _ = _chunk_layout(cfg, str(states.mat_map.device))
-  ncx, ncy = cfg.n_chunks
-  held = torch.zeros((n, ncx * ncy), dtype=torch.int32,
-                     device=states.mat_map.device)
-  held.index_add_(1, chunk, (states.ent.etype > 0).to(torch.int32))
-  touched = states.chunk_touched | (held > 0).reshape(n, ncx, ncy)
-  reward, done, dead, unl, hp = _reward_done(
-      states.player.inventory, states.player.achievements, states.unlocked,
-      states.env_last_health, states.step, cfg)
-  states = dataclasses.replace(states, env_last_health=hp, unlocked=unl,
-                               chunk_touched=touched)
-  return states, StepOut(reward=reward, done=done, dead=dead, ended=done)
-
-
-def step_batch(states: State, actions: torch.Tensor, cfg: EnvConfig,
-               balance: bool | None = None):
-  """One simulation tick of every env (env.py:83-118): ``actions`` (N,).
-
-  ``balance``: None balances each env on its own cadence (every
-  ``cfg.balance_every``-th step of the env); True / False force the phase
-  on / off for this tick.  The tick itself is the tick kernel
-  (``cfg.engine == 'plain'``: its twin :func:`tick_plain`).  Returns
-  ``(states, out)`` with (N,) StepOut leaves.
-  """
-  from . import step_cuda
-  step_ = states.step + 1
-  s_player, s_mob, s_balance = tick_seeds(states.key, step_)
-  states = dataclasses.replace(states, step=step_)
-  run = tick_plain if cfg.engine == 'plain' else step_cuda.tick
-  states = run(states, actions, s_player, s_mob, cfg)
-  return finish_tick(states, s_balance, cfg, balance)
 
 
 # ---------------------------------------------------------------------------
@@ -883,7 +856,7 @@ def balance_plain(states: State, seeds: torch.Tensor,
     occ_pre = torch.zeros_like(states.ent.etype)
   ncx, ncy = cfg.n_chunks
   i32 = lambda v: v.to(torch.int32)
-  light = state_lib.daylight(states.step, cfg.day_length)
+  light = state_lib.daylight_plain(states.step, cfg.day_length)
   T1, H1, A1, tc = balance_core(
       i32(states.mat_map), i32(states.ent.etype), i32(states.ent.health),
       i32(states.ent.aux), i32(occ_pre),

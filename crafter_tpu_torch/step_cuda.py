@@ -9,7 +9,9 @@
   twin ``step.balance_plain``.
 
 For CUDA tensors each wrapper launches its kernel; for CPU tensors it runs
-the twin.  ``group_tick.launches`` / ``tick.launches`` /
+the twin.  The wrappers are where the port makes that choice (with
+``render_cuda``, ``ops/noise_cuda`` and ``prng``): their callers call them
+on either device.  ``group_tick.launches`` / ``tick.launches`` /
 ``balance.launches`` count launches.  :func:`occupancy` reports how many
 blocks of the group or tick kernel an SM holds.  ``group_tick(...,
 geometry=(threads, min_blocks))`` launches a geometry variant of the group

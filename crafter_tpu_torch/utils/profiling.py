@@ -217,12 +217,12 @@ def counted_wrappers():
   """``(name, wrapper)`` of every kernel wrapper that counts its launches
   (``wrapper.launches``; the wrappers of the hashed 3-D noise and the roll
   micro-bench, which no path of the package reaches, are left out)."""
-  from .. import prng_cuda, render_cuda, state, step_cuda
+  from .. import prng_cuda, render_cuda, step_cuda
   from ..ops import noise_cuda
   return (('group_tick', step_cuda.group_tick), ('tick', step_cuda.tick),
           ('balance', step_cuda.balance), ('noise2', noise_cuda.noise2),
           ('render_win79', render_cuda.render_win79),
-          ('daylight', state.daylight), ('threefry', prng_cuda.draw),
+          ('daylight', render_cuda.daylight), ('threefry', prng_cuda.draw),
           ('noise3_perm', noise_cuda.noise3_perm))
 
 

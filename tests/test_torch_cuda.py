@@ -67,8 +67,10 @@ def test_kernels_match_plain_twins(dev):
 
 
 def test_vec_step_group_kernel_path_equals_plain(dev):
+  """The kernel loop on the card equals the ``noise_mode='fast'`` loop (the
+  per-point noise twin at reset) on the card and the loop on the CPU."""
   cfg = ct.EnvConfig(length=25)
-  plain = dataclasses.replace(cfg, engine='plain', noise_mode='fast')
+  plain = dataclasses.replace(cfg, noise_mode='fast')
   va = ct.vec_reset(ct.home_keys(9, 13, dev), cfg)
   vb = ct.vec_reset(ct.home_keys(9, 13, dev), plain)
   vc = ct.vec_reset(ct.home_keys(9, 13, 'cpu'), cfg)

@@ -7,12 +7,13 @@ edges and inside, some asleep; cows, zombies ready to strike, reloaded
 skeletons, arrows in four directions in front of tables and furnaces,
 plants, dying mobs) and the 5 hand-built scenes of ``test_torch_step.py``
 go through 3 ticks in one batch of 13, without balance.  Every leaf of the
-state and every output must be equal after every tick, for ``step_batch``
-on the tick's twin (``tick_plain``) and for the group's twin
-(``step_group_plain``, K = 3), whose occupancy must be the OR of the JAX
-states after ticks 0 and 1.  The events the kernels' checks need must
-happen: a skeleton shoots, an arrow hits, a zombie strikes, a player
-wakes, an entity outside every window stays.  Tolerance: none.
+state and every output must be equal after every tick, for
+``env.step_batch`` (on the CPU its tick is the twin ``tick_plain``) and
+for the group's twin (``step_group_plain``, K = 3), whose occupancy must
+be the OR of the JAX states after ticks 0 and 1.  The events the kernels'
+checks need must happen: a skeleton shoots, an arrow hits, a zombie
+strikes, a player wakes, an entity outside every window stays.
+Tolerance: none.
 """
 
 import jax
@@ -27,11 +28,12 @@ from crafter_tpu.config import EnvConfig as JaxConfig
 from crafter_tpu_torch import convert, rules
 from crafter_tpu_torch import step as step_lib
 from crafter_tpu_torch.config import EnvConfig
+from crafter_tpu_torch.env import step_batch
 import dense_states
 from one_thread import one_torch_thread  # noqa: F401
 from test_torch_step import _assert_same, _to_numpy
 
-CFG = EnvConfig(engine='plain', noise_mode='fast')
+CFG = EnvConfig(noise_mode='fast')
 TICKS = 3
 N_DENSE = 8
 
@@ -80,7 +82,7 @@ def test_step_batch_matches_jax_on_dense_states(run):
   tree, acts, states, outs = run
   ours = convert.state_from_numpy(tree, 'cpu')
   for t in range(TICKS):
-    ours, out = step_lib.step_batch(ours, torch.from_numpy(acts[t]), CFG,
+    ours, out = step_batch(ours, torch.from_numpy(acts[t]), CFG,
                                     balance=False)
     _assert_same(convert.to_numpy(ours), states[t], f'tick {t}')
     _assert_same(convert.to_numpy(out), outs[t], f'out {t}')
@@ -109,7 +111,7 @@ def test_dense_states_hold_the_events(run):
   """Skeletons shoot, zombies strike, arrows hit, sleepers wake, and the
   entities outside every window stay where they are."""
   tree, acts, _, _ = run
-  ours, _ = step_lib.step_batch(convert.state_from_numpy(tree, 'cpu'),
+  ours, _ = step_batch(convert.state_from_numpy(tree, 'cpu'),
                                 torch.from_numpy(acts[0]), CFG,
                                 balance=False)
   after = convert.to_numpy(ours)

@@ -17,7 +17,12 @@ machine has none), checked both in a fresh interpreter (``sys.modules``
 after importing every module) and by an AST scan of every import statement
 in their sources.  pygame and matplotlib, which only ``run_gui`` and
 ``plots`` use, are imported inside their functions: importing every module
-loads neither."""
+loads neither.
+
+Inside the port the imports point one way: the import graph (module-level
+and function-level imports alike) has no cycle, the data modules and the
+step and render twins reach no ``*_cuda`` wrapper and no ``_build``, and
+only ``config.py`` reads ``.engine``, whose one value is ``'auto'``."""
 
 import ast
 import functools
@@ -120,3 +125,95 @@ def test_gui_and_plot_libraries_not_loaded():
   assert 'crafter_tpu_torch.plots' in loaded
   bad = [m for m in loaded if m.split('.')[0] in LAZY]
   assert not bad, bad
+
+
+# -- the layering: the wrappers alone pick a kernel or its twin ------------
+def _module_name(path: pathlib.Path) -> str:
+  parts = ('crafter_tpu_torch',) + path.relative_to(PORT).with_suffix('').parts
+  return '.'.join(parts[:-1] if parts[-1] == '__init__' else parts)
+
+
+def _port_modules() -> dict:
+  return {_module_name(p): p for p in sorted(PORT.rglob('*.py'))}
+
+
+@functools.lru_cache(maxsize=None)
+def _import_graph() -> dict:
+  """Module -> the port's modules it imports, at module level or inside a
+  function.  ``from . import x`` (and ``from .pkg import x``) is an edge to
+  the submodule ``x`` where one exists, else to the package."""
+  modules = _port_modules()
+  graph = {}
+  for name, path in modules.items():
+    package = name if path.name == '__init__.py' else name.rpartition('.')[0]
+    edges = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+      if isinstance(node, ast.Import):
+        edges |= {a.name for a in node.names if a.name in modules}
+      elif isinstance(node, ast.ImportFrom):
+        base = node.module or ''
+        if node.level:
+          parts = package.split('.')[:package.count('.') + 2 - node.level]
+          base = '.'.join(parts + ([node.module] if node.module else []))
+        if base not in modules:
+          continue
+        for alias in node.names:
+          sub = f'{base}.{alias.name}'
+          edges.add(sub if sub in modules else base)
+    graph[name] = edges - {name}
+  return graph
+
+
+def _reach(graph: dict, start: str) -> set:
+  seen, todo = set(), [start]
+  while todo:
+    for nxt in graph[todo.pop()] - seen:
+      seen.add(nxt)
+      todo.append(nxt)
+  return seen
+
+
+def test_import_graph_resolves_relative_imports():
+  graph = _import_graph()
+  assert 'crafter_tpu_torch.step_cuda' in graph['crafter_tpu_torch.env']
+  assert 'crafter_tpu_torch.utils.profiling' in graph['crafter_tpu_torch.env']
+  assert 'crafter_tpu_torch._build' in graph['crafter_tpu_torch.ops.noise_cuda']
+  assert 'crafter_tpu_torch.models' in graph['crafter_tpu_torch.ppo']
+
+
+def test_port_imports_have_no_cycle():
+  graph = _import_graph()
+  cycles = sorted(m for m in graph if m in _reach(graph, m))
+  assert not cycles, f'modules on an import cycle: {cycles}'
+
+
+@pytest.mark.parametrize('module', ['rules', 'config', 'state', 'ops.fma',
+                                    'step', 'render'])
+def test_data_and_twins_reach_no_kernel_wrapper(module):
+  """The data modules and the step and render twins reach neither the
+  build nor a ``*_cuda`` wrapper, directly or through another module."""
+  reached = _reach(_import_graph(), f'crafter_tpu_torch.{module}')
+  bad = sorted(m for m in reached
+               if m.endswith('_cuda') or m.endswith('._build'))
+  assert not bad, f'{module} imports {bad}'
+
+
+def test_only_config_reads_engine():
+  """Only ``config.py`` reads an ``.engine`` attribute: the kernel or the
+  twin is the wrappers' choice, by device."""
+  readers = []
+  for name, path in _port_modules().items():
+    if name == 'crafter_tpu_torch.config':
+      continue
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+      if isinstance(node, ast.Attribute) and node.attr == 'engine':
+        readers.append(f'{path.relative_to(ROOT)}:{node.lineno}')
+  assert not readers, readers
+
+
+@pytest.mark.parametrize('engine', ['plain', 'pallas'])
+def test_engine_other_than_auto_raises(engine):
+  from crafter_tpu_torch.config import ENGINES, EnvConfig
+  assert ENGINES == ('auto',)
+  with pytest.raises(ValueError):
+    EnvConfig(engine=engine)

@@ -116,8 +116,9 @@ def test_vec_step_group_obs_matches_jax(fresh):
 
 
 def test_group_obs_plain_engine_equals_auto():
-  """``engine='plain'`` (always the twins) gives the same pixel path."""
-  plain = dataclasses.replace(CFG, engine='plain', noise_mode='fast')
+  """``noise_mode='fast'`` (the per-point noise twin) gives the same pixel
+  path as ``'auto'`` (on the CPU the shared-form twin)."""
+  plain = dataclasses.replace(CFG, noise_mode='fast')
   core = ct.CrafterEnv(CFG, 'cpu')
   va = ct.vec_reset(ct.home_keys(3, 5, 'cpu'), CFG)
   vb = ct.vec_reset(ct.home_keys(3, 5, 'cpu'), plain)

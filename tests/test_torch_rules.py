@@ -23,12 +23,13 @@ from crafter_tpu_torch import convert, rules, step_cuda
 from crafter_tpu_torch import state as state_lib
 from crafter_tpu_torch import step as step_lib
 from crafter_tpu_torch.config import EnvConfig
+from crafter_tpu_torch.env import step_batch
 import dense_states
 from one_thread import one_torch_thread  # noqa: F401
 from test_torch_dense import _concat, _to_jax
 from test_torch_step import _assert_same, _to_numpy
 
-CFG = EnvConfig(engine='plain', noise_mode='fast')
+CFG = EnvConfig(noise_mode='fast')
 H = rules.ITEM_HEALTH
 
 
@@ -69,7 +70,7 @@ def test_override_rules_reaches_cached_tables_and_matches_jax():
     mine = convert.state_from_numpy(tree, 'cpu')
     for t in range(3):
       js, jout = step(js, jnp.asarray(acts[t]))
-      mine, out = step_lib.step_batch(mine, torch.from_numpy(acts[t]), CFG,
+      mine, out = step_batch(mine, torch.from_numpy(acts[t]), CFG,
                                       balance=False)
       _assert_same(convert.to_numpy(mine), _to_numpy(js), f'tick {t}')
       _assert_same(convert.to_numpy(out), _to_numpy(jout), f'out {t}')

@@ -33,7 +33,7 @@ from crafter_tpu_torch.config import EnvConfig
 from one_thread import one_torch_thread  # noqa: F401
 
 A = rules.ACTION_ID
-CFG = EnvConfig(engine='plain', noise_mode='fast')
+CFG = EnvConfig(noise_mode='fast')
 
 
 def _to_numpy(tree):
@@ -92,7 +92,7 @@ def test_daylight_thresholds_match_jax():
   ref = jax.jit(lambda s: jnp.stack([
       (3.5 - 3 * jstate.daylight(s, 300)).astype(jnp.int32),
       (1.5 + jstate.daylight(s, 300)).astype(jnp.int32)]))(steps)
-  light = state_lib.daylight(torch.from_numpy(steps), 300)
+  light = state_lib.daylight_plain(torch.from_numpy(steps), 300)
   ours = torch.stack([
       step_lib.fma32(-3.0, light, 3.5).to(torch.int32),
       (1.5 + light).to(torch.int32)])
@@ -158,7 +158,7 @@ def test_balance_matches_balance_pallas_past_step_10000(fresh13):
                                 torch.from_numpy(np.array(occ)), cfg)
   _assert_same(convert.to_numpy(ours), _to_numpy(ref))
   assert (ours.ent.etype != ours_in.ent.etype).sum() > 0
-  light = state_lib.daylight(torch.from_numpy(steps), 200)
+  light = state_lib.daylight_plain(torch.from_numpy(steps), 200)
   assert bool((light < 0.5).any() and (light > 0.5).any())
 
 

@@ -3,12 +3,17 @@ on the CPU.
 
 Off, the default, they leave no ``crafter.`` range in a profiler trace and
 call no sink.  On, they change no result: 3 groups and 20 ticks of an
-8-env plain-engine ``VecState`` give the same states, results and episodes
-leaf for leaf.  ``generate_world`` nests under ``reset_pass`` (parent and
-call id), ``envs_reset`` adds up to the episodes started, and
-``worlds_made`` follows the CPU's rule: only the selected rows.  The card's
+8-env ``VecState`` on the CPU (the plain twins) give the same states,
+results and episodes leaf for leaf.  ``generate_world`` nests under
+``reset_pass`` (parent and call id), ``envs_reset`` adds up to the
+episodes started, and ``worlds_made`` follows the CPU's rule: only the
+selected rows.  The card's
 rule (``min(reset_batch, n)`` worlds a pass) and the device-operation count
 with a sink set are checked in ``test_torch_cuda.py``.
+
+The benchmark replaces ``step_cuda.group_tick`` and
+``render_cuda.render_win79`` by setting the module attribute: the env
+paths look both up at call time, so a counting stand-in sees each call.
 """
 
 import dataclasses
@@ -18,13 +23,14 @@ import pytest
 import torch
 
 import crafter_tpu_torch as ct
+from crafter_tpu_torch import render_cuda, step_cuda
 from crafter_tpu_torch.state import leaves
 from crafter_tpu_torch.utils import profiling
 from one_thread import one_torch_thread  # noqa: F401
 
 N, GROUPS, TICKS = 8, 3, 20
 GROUP_BATCH, TICK_BATCH = 4, 2
-CFG = ct.EnvConfig(length=7, engine='plain')
+CFG = ct.EnvConfig(length=7)
 
 
 class Recorder:
@@ -151,3 +157,32 @@ def test_worlds_made_follows_the_cpu_rule(runs):
     overflow |= int(finished) > budget
     short |= made < batch
   assert overflow and short
+
+
+def test_env_paths_call_the_wrappers_through_their_modules(monkeypatch):
+  """One ``vec_step_group_obs`` group calls ``group_tick`` and
+  ``render_win79`` once each, one ``VecEnv.step`` ``render_win79`` once,
+  all through counting stand-ins set on the modules."""
+  calls = {'group_tick': 0, 'render_win79': 0}
+
+  def counting(module, name):
+    original = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+      calls[name] += 1
+      return original(*args, **kwargs)
+    monkeypatch.setattr(module, name, wrapper)
+
+  counting(step_cuda, 'group_tick')
+  counting(render_cuda, 'render_win79')
+  cfg = ct.EnvConfig(length=7, balance_every=3)
+  core = ct.CrafterEnv(cfg, 'cpu')
+  vs = ct.vec_reset(ct.home_keys(5, 2, 'cpu'), cfg)
+  actions = torch.zeros((cfg.balance_every, 2), dtype=torch.int32)
+  ct.vec_step_group_obs(vs, actions, cfg, 2, core)
+  assert calls == {'group_tick': 1, 'render_win79': 1}
+  env = ct.VecEnv(2, cfg, seed=5, device='cpu')
+  env.reset()
+  calls['render_win79'] = 0
+  env.step(torch.zeros((2,), dtype=torch.int32))
+  assert calls == {'group_tick': 1, 'render_win79': 1}

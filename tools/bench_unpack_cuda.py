@@ -114,8 +114,8 @@ def real_windows(n, dev):
   env = ct.vec_reset_chunked(ct.home_keys(0, envs, dev), cfg).env
   rows = torch.arange(n, device=dev) % envs
   p = env.player
-  packed = render.pack_cells(env.mat_map, env.ent.etype, env.ent.aux,
-                             env.ent.facing)[rows]
+  packed = ct.pack_cells(env.mat_map, env.ent.etype, env.ent.aux,
+                         env.ent.facing)[rows]
   win = render.window_prep(packed, p.pos[rows], p.facing[rows],
                            p.sleeping[rows], p.inventory[rows], cfg)
   steps = (env.step[rows] + torch.arange(n, device=dev,
